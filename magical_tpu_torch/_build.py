@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every ``csrc/*.cu`` source goes through one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds).  The library lands in ``build/magical_tpu_torch/`` beside the
-package, under a name that hashes the sources and flags, so a changed
-source rebuilds and an unchanged one is reused.  Nothing is built when
-the package is imported: the kernel wrappers call :func:`library` on
-their first launch on a CUDA device.
+Each ``csrc/*.cu`` source goes through its own ``nvcc`` call into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds); the calls run side by side.  The libraries land in
+``build/magical_tpu_torch/`` beside the package, each under a name that
+hashes its source, the shared headers and the flags, so a changed source
+rebuilds and an unchanged one is reused.  Nothing is built when the
+package is imported: the kernel wrappers call :func:`library` on their
+first launch on a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / 'csrc'
@@ -42,14 +44,13 @@ SIGNATURES = {
     'render_lo_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
     + [_P],
     'render_lo_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
+    'render_hi_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
+    + [_P],
+    'render_hi_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
 }
 
 _LIB = None
 BUILD_SECONDS = None
-
-
-def sources():
-    return sorted(CSRC_DIR.glob('*.cu')) + sorted(CSRC_DIR.glob('*.cuh'))
 
 
 def nvcc_path() -> str:
@@ -69,54 +70,79 @@ def nvcc_path() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(cu: pathlib.Path) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in [cu] + sorted(CSRC_DIR.glob('*.cuh')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile csrc/*.cu into the build directory unless the library for
-    the current sources already exists; returns its path."""
+def build(verbose: bool = False) -> list:
+    """Compile every csrc/*.cu whose library for the current sources does
+    not exist yet, one nvcc process per source, all started together;
+    returns the libraries' paths."""
     global BUILD_SECONDS
-    out = BUILD_DIR / f'libmagical_tpu_torch_{_digest()}.so'
-    if out.is_file():
-        return out
+    outs = [(cu, BUILD_DIR / f'lib{cu.stem}_{_digest(cu)}.so')
+            for cu in sorted(CSRC_DIR.glob('*.cu'))]
+    todo = [(cu, out) for cu, out in outs if not out.is_file()]
+    if not todo:
+        return [out for _, out in outs]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC_DIR.glob('*.cu'))]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ['-Xptxas', '-v']
-    cmd += ['-o', tmp, *cu]
+    nvcc = nvcc_path()
+    jobs = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        for cu, out in todo:
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS]
+            if verbose:
+                cmd += ['-Xptxas', '-v']
+            cmd += ['-o', tmp, str(cu)]
+            jobs.append((cmd, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        results = []
+        for cmd, tmp, out, proc in jobs:
+            so, se = proc.communicate()
+            results.append((cmd, tmp, out, proc.returncode, so, se))
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     BUILD_SECONDS = time.perf_counter() - t0
-    (BUILD_DIR / 'build.log').write_text(
-        ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stderr[-4000:]}')
-    if verbose:
-        print(proc.stderr, end='')
-    os.replace(tmp, out)
-    return out
+    (BUILD_DIR / 'build.log').write_text(''.join(
+        ' '.join(cmd) + '\n' + so + se for cmd, _, _, _, so, se in results))
+    failed = []
+    for cmd, tmp, out, rc, so, se in results:
+        if rc != 0:
+            os.unlink(tmp)
+            failed.append(f'{cmd[-1]}: nvcc failed ({rc}):\n{se[-4000:]}')
+            continue
+        if verbose:
+            print(se, end='')
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return [out for _, out in outs]
 
 
-def library(verbose: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def library(verbose: bool = False) -> types.SimpleNamespace:
+    """The kernels' C entry points (`SIGNATURES`), from the libraries
+    built on first use."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build(verbose)))
+        libs = [ctypes.CDLL(str(p)) for p in build(verbose)]
+        entries = {}
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = next(getattr(lib, name) for lib in libs
+                      if hasattr(lib, name))
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIB = lib
+            entries[name] = fn
+        _LIB = types.SimpleNamespace(**entries)
     return _LIB
 
 

@@ -8,32 +8,37 @@ environment family stepped for thousands of instances in lockstep.
     carry, obs, rew, done, info = env.step(carry, actions)
 
 On a CUDA device each step runs the control-step kernel
-(``core/physics_kernel.py``), then the lo render kernel, which writes the
-new frame into slot ``t mod depth`` of each view's frame ring
-(``core/render_kernel.py``), then assembles the observation.  On the CPU
-the same calls run the kernels' plain PyTorch versions.  `done` fires
-exactly at the episode's max step and ``info['eval_score']`` carries the
-end-of-episode score, zero elsewhere.
+(``core/physics_kernel.py``), then the render kernel of the env's
+fidelity (lo or hi, ``core/render_kernel.py``), which writes the new frame
+into slot ``t mod depth`` of each view's frame ring, then assembles the
+observation.  Raw IDs (no preprocessor suffix, and the DebugReward IDs)
+observe a ``{allo, ego}`` dict of fresh 384² frames instead, with no ring.
+On the CPU the same calls run the kernels' plain PyTorch versions.  `done`
+fires exactly at the episode's max step and ``info['eval_score']``
+carries the end-of-episode score, zero elsewhere.
 
-The port serves the Demo variant of MoveToCorner with the five LoRes
-preprocessors at lo fidelity (hi fidelity on the CPU only); everything
-else raises NotImplementedError naming the ROADMAP.md item that brings
-it.
+The port serves every variant and preprocessor of MoveToCorner and
+MoveToRegion at both fidelities; the other task families raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
+from magical_tpu_torch import constants as C
+from magical_tpu_torch.api import spaces
 from magical_tpu_torch.api.names import EnvName
-from magical_tpu_torch.core import (physics_kernel, preproc, render,
-                                    render_kernel)
+from magical_tpu_torch.core import physics_kernel, preproc, render_kernel
 from magical_tpu_torch.core.state import EnvState
 from magical_tpu_torch.tasks import ALL_TASKS
+from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
 
 _TODO = 'ROADMAP.md, "Modules to port", item {}'
 
@@ -41,8 +46,9 @@ _TODO = 'ROADMAP.md, "Modules to port", item {}'
 @dataclasses.dataclass
 class EnvCarry:
     """Full per-batch carried state: physics state, the frame rings
-    ({view: (depth, B, res, res, 3) uint8}) and the lockstep step count
-    (a host int equal to every env's ``state.t``)."""
+    ({view: (depth, B, res, res, 3) uint8}; empty for raw observations)
+    and the lockstep step count (a host int equal to every env's
+    ``state.t``)."""
     state: EnvState
     frames: dict
     t: int
@@ -61,23 +67,18 @@ class BatchedEnv:
             raise NotImplementedError(
                 f'{env_name}: task {name.task} is not ported yet '
                 f'({_TODO.format(2)})')
-        if name.variant != 'Demo':
-            raise NotImplementedError(
-                f'{env_name}: variant {name.variant} is not ported yet; '
-                f'randomised variants need tasks/randomize.py '
-                f'({_TODO.format(1)})')
-        if name.preproc is None or name.preproc.startswith('DebugReward'):
-            raise NotImplementedError(
-                f'{env_name}: raw and DebugReward observations are not '
-                f'ported yet ({_TODO.format(4)})')
         if fidelity not in ('lo', 'hi'):
             raise ValueError(f'fidelity must be lo or hi, not {fidelity!r}')
-        if fidelity == 'hi' and self.device.type == 'cuda':
-            raise NotImplementedError(
-                f'{env_name}: hi fidelity on CUDA needs the hi render '
-                f'kernel ({_TODO.format(3)})')
         self.task = ALL_TASKS[name.task]
-        self.preproc = preproc.get_preproc(name.preproc)
+        # MoveToCorner-Demo-DebugReward[-<preproc>]-v0 IDs are registered
+        # with the RAW entry point in the reference
+        # (benchmarks/__init__.py:1021-1047), so the preproc suffix is
+        # cosmetic there; as in the JAX package
+        self.debug_reward = (name.variant == 'Demo'
+                             and name.preproc is not None
+                             and name.preproc.startswith('DebugReward'))
+        self.preproc = preproc.get_preproc(
+            None if self.debug_reward else name.preproc)
         self.flags = self.task.flags_for(name.variant)
         self.fidelity = fidelity
         self.max_episode_steps = self.task.ep_len
@@ -90,23 +91,23 @@ class BatchedEnv:
     def _render_args(self):
         return (self.task.max_blocks, self.task.max_goals, self.robot_first)
 
+    def render_views(self, state: EnvState, res: int, views) -> dict:
+        """Fresh frames {view: (B, res, res, 3) uint8} of `state` at the
+        env's fidelity: through K4 (hi) or K3 (lo) on CUDA, their plain
+        versions on the CPU."""
+        fresh = (render_kernel.render_views_hi if self.fidelity == 'hi'
+                 else render_kernel.render_views_lo)
+        return fresh(state, *self._render_args(), res=res, views=views,
+                     static_shapes=self.static_shapes)
+
     def _render_fresh(self, state: EnvState) -> dict:
-        if self.fidelity == 'hi':
-            return render.render_views(
-                state, *self._render_args(), res=self.preproc.res,
-                views=self.preproc.views, fidelity='hi',
-                static_shapes=self.static_shapes)
-        return render_kernel.render_views_lo(
-            state, *self._render_args(), res=self.preproc.res,
-            views=self.preproc.views, static_shapes=self.static_shapes)
+        return self.render_views(state, self.preproc.res, self.preproc.views)
 
     def _render_into_rings(self, state: EnvState, frames: dict, t: int):
-        if self.fidelity == 'hi':
-            return preproc.push_frames_cf(self.preproc, frames,
-                                          self._render_fresh(state), t)
-        return render_kernel.render_into_slots(
-            state, frames, t, *self._render_args(), self.preproc,
-            res=self.preproc.res, static_shapes=self.static_shapes)
+        into = (render_kernel.render_hi_into_slots if self.fidelity == 'hi'
+                else render_kernel.render_into_slots)
+        return into(state, frames, t, *self._render_args(), self.preproc,
+                    res=self.preproc.res, static_shapes=self.static_shapes)
 
     # -- the API -----------------------------------------------------------
 
@@ -122,6 +123,8 @@ class BatchedEnv:
                               device=gen.device)
         state = state.replace(rng=seeds.to(self.device))
         raw = self._render_fresh(state)
+        if self.preproc.raw:
+            return EnvCarry(state=state, frames={}, t=0), raw
         frames = preproc.init_frames_cf(self.preproc, raw)
         obs = preproc.observation_cf(self.preproc, frames, 0,
                                      self.preproc.res)
@@ -146,12 +149,20 @@ class BatchedEnv:
                     f'BatchedEnv lockstep violated: t in [{tmin}, {tmax}], '
                     f'host step {t} — the frame-ring phase would be wrong '
                     f'for the whole batch')
-        frames = self._render_into_rings(state, carry.frames, t)
-        obs = preproc.observation_cf(self.preproc, frames, t,
-                                     self.preproc.res)
+        if self.preproc.raw:
+            frames = {}
+            obs = self._render_fresh(state)
+        else:
+            frames = self._render_into_rings(state, carry.frames, t)
+            obs = preproc.observation_cf(self.preproc, frames, t,
+                                         self.preproc.res)
         done = state.t >= self.max_episode_steps
         score = torch.where(done, self.task.score_fn(state), 0.0)
-        reward = torch.zeros((B,), dtype=torch.float32, device=self.device)
+        if self.debug_reward:
+            reward = debug_shaped_reward(state)
+        else:
+            reward = torch.zeros((B,), dtype=torch.float32,
+                                 device=self.device)
         info = {'eval_score': score,
                 'n_placement_failures': state.place_fail}
         return EnvCarry(state=state, frames=frames, t=t), obs, reward, \
@@ -173,3 +184,20 @@ class BatchedEnv:
             scores.append(info['eval_score'])
         return (carry, obs, torch.stack(rews), torch.stack(dones),
                 torch.stack(scores))
+
+    @property
+    def action_space(self):
+        return spaces.Discrete(C.N_ACTIONS)
+
+    @property
+    def observation_space(self):
+        sp = self.preproc
+        if sp.raw or sp.stacked_dict:
+            depth = 3 if sp.raw else 12
+            box = spaces.Box(0, 255, (sp.res, sp.res, depth), np.uint8)
+            return spaces.Dict(collections.OrderedDict(
+                [('allo', box), ('ego', box)]))
+        depth = (sp.allo_frames + sp.ego_frames) * 3
+        shape = (depth, sp.res, sp.res) if sp.channels_first \
+            else (sp.res, sp.res, depth)
+        return spaces.Box(0, 255, shape, np.uint8)

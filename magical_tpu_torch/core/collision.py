@@ -61,8 +61,9 @@ def transform_verts(verts, pos, angle):
 
 def _poly_edges(verts, nv):
     """Per-edge (start, end, outward normal, valid) for CCW polys with `nv`
-    real vertices stored in padded (…, NV, 2) `verts`."""
-    idx = torch.arange(NV, device=verts.device)
+    real vertices stored in padded (…, NV, 2) `verts` (or in fewer rows,
+    as long as they hold all `nv`)."""
+    idx = torch.arange(verts.shape[-2], device=verts.device)
     nv = torch.as_tensor(nv, device=verts.device)[..., None]
     nxt = torch.where(idx + 1 < nv, idx + 1, 0)
     nxt = nxt.expand(*verts.shape[:-1])

@@ -291,26 +291,39 @@ def ego_pixel_coords(state: EnvState, res: int):
 def _prim_sdf(pix, verts, nv, radius):
     """Signed distance (approx; exact sign) from pixel centres to one prim
     per env.  pix: (B, H, W, 2) or (H, W, 2); verts: (B, NV, 2); nv,
-    radius: (B,)."""
+    radius: (B,).
+
+    What the batch holds decides the work, not the result: the circle
+    distance is computed only if some env's prim is a circle, the polygon
+    only if some env's is not, and only over the faces below the largest
+    vertex count (the faces past it are invalid in every env and never
+    win the max)."""
     px = pix[..., 0]
     py = pix[..., 1]
 
     def e(x):                    # per-env (B,) -> (B, 1, 1)
         return x[:, None, None]
 
-    dx = px - e(verts[:, 0, 0])
-    dy = py - e(verts[:, 0, 1])
-    d_circ = torch.sqrt(dx * dx + dy * dy) - e(radius)
-    v0, _, n, valid = col._poly_edges(verts, nv)
-    offs = v0[..., 0] * n[..., 0] + v0[..., 1] * n[..., 1]
-    d_poly = None
-    for f in range(verts.shape[-2]):
-        df = torch.where(e(valid[:, f]),
-                         px * e(n[:, f, 0]) + py * e(n[:, f, 1])
-                         - e(offs[:, f]), -1e9)
-        d_poly = df if d_poly is None else torch.maximum(d_poly, df)
-    d_poly = d_poly - e(radius)
-    return torch.where(e(nv == 1), d_circ, d_poly)
+    circ = nv == 1
+    d_circ = d_poly = None
+    if bool(circ.any()):
+        dx = px - e(verts[:, 0, 0])
+        dy = py - e(verts[:, 0, 1])
+        d_circ = torch.sqrt(dx * dx + dy * dy) - e(radius)
+    if not bool(circ.all()):
+        v0, _, n, valid = col._poly_edges(verts, nv)
+        offs = v0[..., 0] * n[..., 0] + v0[..., 1] * n[..., 1]
+        for f in range(int(nv.max())):
+            df = torch.where(e(valid[:, f]),
+                             px * e(n[:, f, 0]) + py * e(n[:, f, 1])
+                             - e(offs[:, f]), -1e9)
+            d_poly = df if d_poly is None else torch.maximum(d_poly, df)
+        d_poly = d_poly - e(radius)
+    if d_poly is None:
+        return d_circ
+    if d_circ is None:
+        return d_poly
+    return torch.where(e(circ), d_circ, d_poly)
 
 
 def _box_arclen(pix, verts):

@@ -1,8 +1,9 @@
-// Per-pixel arithmetic of the lo-fidelity compositing kernel
-// (render_lo.cu): camera transform, prim SDFs, AA coverage, painter's-order
-// blends and the uint8 quantise of core/render.py (render_frame with
-// aa=True, then to_uint8).  Plain C++ in __host__ __device__ functions, so
-// that it also builds for the host.
+// Per-pixel arithmetic of the compositing kernels, lo (render_lo.cu) and
+// hi (render_hi.cu): camera transform, prim SDFs, coverage, painter's-order
+// blends and the uint8 quantise of core/render.py (render_frame, then
+// to_uint8; at hi fidelity also the 4x4 box mean of downsample4).  Plain
+// C++ in __host__ __device__ functions, so that it also builds for the
+// host.
 
 #pragma once
 
@@ -115,10 +116,15 @@ __host__ __device__ inline float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-// Composite every prim over pixel (row, col) and quantise to uint8.
-__host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
-                                            const Camera& cam, int row,
-                                            int col, unsigned char* rgb) {
+// Composite every prim over the centre of pixel (row, col) of the camera's
+// grid and quantise each channel to a uint8 level (returned as a float).
+// `hard`: fills get hard (non-antialiased) coverage, the sign of the SDF
+// at the pixel centre, as render_frame(aa=False) gives them; outlines keep
+// their smoothed band either way.
+__host__ __device__ inline void shade_levels(const Prim* prims, int n_prims,
+                                             const Camera& cam, int row,
+                                             int col, bool hard,
+                                             float* level) {
   float x, y;
   pixel_world(cam, row, col, &x, &y);
   float img[3] = {cam.bg[0], cam.bg[1], cam.bg[2]};
@@ -126,7 +132,8 @@ __host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
     const Prim& p = prims[i];
     if (!p.active) continue;           // alpha 0: the blend is the identity
     float d = prim_sdf(p, x, y);
-    float alpha = clamp01(0.5f - d * cam.scale);
+    float alpha = hard ? (d < 0.0f ? 1.0f : 0.0f)
+                       : clamp01(0.5f - d * cam.scale);
     if (p.kind != KIND_FILL) {
       // outlines: smoothed band (GL_LINE_SMOOTH in the reference)
       float half_lw_w = fmaxf(p.lw * cam.lw_scale, 1.0f) / cam.two_scale;
@@ -142,7 +149,37 @@ __host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
       img[c] = img[c] * (1.0f - alpha) + p.col[c] * alpha;
   }
   for (int c = 0; c < 3; ++c)
-    rgb[c] = (unsigned char)floorf(clamp01(img[c]) * 255.0f + 0.5f);
+    level[c] = floorf(clamp01(img[c]) * 255.0f + 0.5f);
+}
+
+// Lo fidelity: antialiased coverage at the output pixel itself.
+__host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
+                                            const Camera& cam, int row,
+                                            int col, unsigned char* rgb) {
+  float level[3];
+  shade_levels(prims, n_prims, cam, row, col, false, level);
+  for (int c = 0; c < 3; ++c) rgb[c] = (unsigned char)level[c];
+}
+
+// Hi fidelity: output pixel (row, col) is the rounded mean of the uint8
+// levels of its 4x4 subpixels, each composited with hard fills on the
+// camera's 4x grid (`cam` describes that grid: res, scale and line scale
+// at 4x).  The levels are integers and their sum is at most 16 * 255, so
+// the float sum is exact in any order, as is the division by 16.
+__host__ __device__ inline void shade_pixel_hi(const Prim* prims, int n_prims,
+                                               const Camera& cam, int row,
+                                               int col, unsigned char* rgb) {
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 4; ++j) {
+      float level[3];
+      shade_levels(prims, n_prims, cam, 4 * row + i, 4 * col + j, true,
+                   level);
+      for (int c = 0; c < 3; ++c) sum[c] += level[c];
+    }
+  }
+  for (int c = 0; c < 3; ++c)
+    rgb[c] = (unsigned char)floorf(sum[c] / 16.0f + 0.5f);
 }
 
 }  // namespace magical_render

@@ -1,11 +1,10 @@
 """Task framework: variant flags and shared reset helpers.
 
-The PyTorch counterpart of the parts of ``magical_tpu/tasks/base.py``
-that MoveToCorner's fixed-layout variants need.  A task is *data*: a
-:class:`TaskDef` with static sizes plus batched functions
+The PyTorch counterpart of ``magical_tpu/tasks/base.py``.  A task is
+*data*: a :class:`TaskDef` with static sizes plus batched functions
 ``reset(generator, batch, flags, device) -> EnvState`` and
-``score(state) -> (B,) f32``.  The placement stack and layout
-randomisation (``Stack``, ``tasks/randomize.py``) are not ported yet.
+``score(state) -> (B,) f32``; :class:`Stack` collects the geometry of the
+entities a reset has placed, per env, as obstacles for the next placement.
 """
 
 from __future__ import annotations
@@ -17,8 +16,13 @@ import numpy as np
 import torch
 
 from magical_tpu_torch import constants as C
+from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core.state import (EnvState, N_ROBOT_BODIES, f32,
                                           place_robot)
+from magical_tpu_torch.tasks import randomize as R
+
+KSUB = G.KSUB
+NV = G.NV
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +74,25 @@ class TaskDef:
         table += [None] * (self.max_blocks - len(table))
         return tuple(table)
 
+    def reachable_shape_types(self, flags: Flags):
+        """Every shape-type code an env with these flags can instantiate:
+        the default slots' codes, and RAND_SHAPE_TYPES (entities.py:568-574)
+        when shape or count is randomised."""
+        codes = set()
+        if self.default_shapes is not None:
+            act = self.default_active or (True,) * len(self.default_shapes)
+            codes |= {int(s) for s, a in zip(self.default_shapes, act) if a}
+        if flags.shape or flags.count:
+            codes |= {int(s) for s in C.RAND_SHAPE_TYPES}
+        return codes
+
+
+# The variants of the task families that have all eight
+# (registered in the reference's benchmarks/__init__.py).
+
+FULL_VARIANTS = ('Demo', 'TestJitter', 'TestColour', 'TestShape',
+                 'TestLayout', 'TestCountPlus', 'TestDynamics', 'TestAll')
+
 
 def sample_phys(generator: torch.Generator, batch: int, flags: Flags,
                 device):
@@ -88,6 +111,96 @@ def choice(generator: torch.Generator, values, batch: int, device):
     idx = torch.randint(0, len(values), (batch,), generator=generator,
                         device=generator.device).to(device)
     return torch.as_tensor(np.asarray(values, np.int32), device=device)[idx]
+
+
+# ---------------------------------------------------------------------------
+# Placement stack: incrementally-placed entity world geometry
+# ---------------------------------------------------------------------------
+
+class Stack:
+    """The placed entities' world geometry, per env, as obstacles for the
+    next placement (the incremental collision re-enabling of
+    pm_randomise_all_poses, geom.py:300-341).
+
+    Rows are entity slots.  Only rows that were `put` are handed to the
+    placement (a row never put is absent in every env), so their number,
+    and the placement's work, grows with the reset."""
+
+    def __init__(self, n_entities: int, batch: int, device):
+        self._n = n_entities
+        self._rows = {}            # slot -> (world geometry, present (B,))
+        # running count of failed placements (reference: PlacementError,
+        # geom.py:111-113); threaded into EnvState.place_fail by resets
+        self.fails = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self._batch, self._device = batch, device
+
+    def put(self, idx, geom_local, pos, angle, present=True, ok=True):
+        """Place entity slot `idx` at (pos (B, 2), angle (B,)) in every env
+        where `present`; count a failure where present and not `ok`."""
+        if not 0 <= idx < self._n:
+            raise IndexError(f'slot {idx} of a {self._n}-entity stack')
+        present = torch.as_tensor(present, dtype=torch.bool,
+                                  device=self._device).expand(self._batch)
+        ok = torch.as_tensor(ok, dtype=torch.bool, device=self._device)
+        self._rows[idx] = (R.transform_entity(geom_local, pos, angle),
+                           present)
+        self.fails = self.fails + (present & ~ok).to(torch.int32)
+
+    def _order(self):
+        return sorted(self._rows)
+
+    def placed(self):
+        """World geometry of the rows put so far, each field (B, E, ...)."""
+        rows = [self._rows[i][0] for i in self._order()]
+        if not rows:
+            return tuple(torch.zeros((self._batch, 0) + shp, dtype=dt,
+                                     device=self._device)
+                         for shp, dt in (((KSUB, NV, 2), torch.float32),
+                                         ((KSUB,), torch.float32),
+                                         ((KSUB,), torch.int32),
+                                         ((KSUB,), torch.bool)))
+        return tuple(torch.stack([r[k] for r in rows], 1) for k in range(4))
+
+    @property
+    def mask(self):
+        """(B, E) bool: which placed rows to collide against."""
+        return self.mask_without()
+
+    def mask_without(self, *hidden):
+        """`mask` with the rows of the slots in `hidden` cleared."""
+        cols = [self._rows[i][1] & (i not in hidden) for i in self._order()]
+        if not cols:
+            return torch.zeros((self._batch, 0), dtype=torch.bool,
+                               device=self._device)
+        return torch.stack(cols, 1)
+
+
+def robot_geom(batch: int, device):
+    """The robot's placement geometry, the same for every env."""
+    return tuple(torch.as_tensor(x, device=device).expand(
+        (batch,) + x.shape) for x in R.robot_placement_geom())
+
+
+def jitter_limits(flags: Flags):
+    """(pos_linf, rot) limits for minor-jitter placement."""
+    if flags.layout_minor:
+        return C.JITTER_POS_BOUND, C.JITTER_ROT_BOUND
+    return None, None
+
+
+def goal_center(xyhw):
+    """Reference goal spec (x, y, h, w) with x,y = TOP-LEFT corner
+    (entities.py:794-797) -> centre (cx, cy)."""
+    x, y, h, w = xyhw
+    return (x + w / 2.0, y - h / 2.0)
+
+
+def com_in_goal(p, cxcyhw):
+    """cpBB.contains_vect of the goal sensor box (entities.py:851-857)."""
+    cx, cy, h, w = cxcyhw[..., 0], cxcyhw[..., 1], cxcyhw[..., 2], \
+        cxcyhw[..., 3]
+    return (torch.abs(p[..., 0] - cx) <= w / 2.0) & \
+        (torch.abs(p[..., 1] - cy) <= h / 2.0)
 
 
 def set_blocks(state: EnvState, shapes, colours, poses, angles, active):
@@ -114,6 +227,16 @@ def set_blocks(state: EnvState, shapes, colours, poses, angles, active):
         block_shape=torch.as_tensor(shapes, dtype=torch.int32, device=dev),
         block_colour=torch.as_tensor(colours, dtype=torch.int32, device=dev),
         block_active=active,
+    )
+
+
+def set_goals(state: EnvState, cxcyhw, colours, active):
+    """Write the goal arrays, each per env, (B, MG[, 4])."""
+    dev = state.device
+    return state.replace(
+        goal_xyhw=torch.as_tensor(cxcyhw, dtype=torch.float32, device=dev),
+        goal_colour=torch.as_tensor(colours, dtype=torch.int32, device=dev),
+        goal_active=torch.as_tensor(active, dtype=torch.bool, device=dev),
     )
 
 

@@ -1,9 +1,9 @@
 """MoveToCorner: push the block to the top-left corner.
 
 The PyTorch counterpart of ``magical_tpu/tasks/move_to_corner.py``
-(reference: magical/benchmarks/move_to_corner.py).  Only the variants
-without layout randomisation reset here: jittered poses need the SAT
-placement sampler of ``tasks/randomize.py``, which is not ported yet.
+(reference: magical/benchmarks/move_to_corner.py).  Variants registered
+in benchmarks/__init__.py:406-451 (no TestLayout or TestCountPlus for this
+task).
 """
 
 import math
@@ -13,6 +13,7 @@ import torch
 from magical_tpu_torch import constants as C
 from magical_tpu_torch.core.state import make_initial_state
 from magical_tpu_torch.tasks import base as B
+from magical_tpu_torch.tasks import randomize as R
 
 MAX_BLOCKS = 1
 MAX_GOALS = 1          # unused (kept >=1 for static-shape friendliness)
@@ -29,6 +30,8 @@ VARIANT_FLAGS = {
     'TestColour': B.Flags(colour=True),
     'TestShape': B.Flags(shape=True),
     'TestDynamics': B.Flags(dynamics=True),
+    # TestAll uses jitter-level pose randomisation (rand_poses) per
+    # benchmarks/__init__.py:444-450
     'TestAll': B.Flags(colour=True, shape=True, layout_minor=True,
                        dynamics=True),
 }
@@ -37,10 +40,6 @@ VARIANT_FLAGS = {
 def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
     """Reset `batch` envs.  Draws from `generator` only where the variant
     randomises something."""
-    if flags.any_layout:
-        raise NotImplementedError(
-            'MoveToCorner layout randomisation needs tasks/randomize.py '
-            '(ROADMAP.md, "Modules to port", item 1)')
     state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, device)
     state = state.replace(phys=B.sample_phys(generator, batch, flags,
                                              device))
@@ -58,13 +57,29 @@ def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
         t = torch.tensor(x, dtype=torch.float32, device=device)
         return t.expand((batch,) + tuple(t.shape))
 
+    robot_pos, robot_ang = per_env(ROBOT_POSE[0]), per_env(ROBOT_POSE[1])
+    block_pos, block_ang = per_env(BLOCK_POSE[0]), per_env(BLOCK_POSE[1])
+    if flags.any_layout:
+        pos_lim, rot_lim = B.jitter_limits(flags)
+        stack = B.Stack(2, batch, device)
+        rg = B.robot_geom(batch, device)
+        # order matches move_to_corner.py:57-64: robot first, then shape
+        robot_pos, robot_ang, ok = R.place_entity(
+            generator, rg, robot_pos, robot_ang, stack.placed(), stack.mask,
+            pos_linf_limit=pos_lim, rot_limit=rot_lim)
+        stack.put(0, rg, robot_pos, robot_ang, ok=ok)
+        bg = R.block_placement_geom(shape)
+        block_pos, block_ang, ok = R.place_entity(
+            generator, bg, block_pos, block_ang, stack.placed(), stack.mask,
+            pos_linf_limit=pos_lim, rot_limit=rot_lim)
+        stack.put(1, bg, block_pos, block_ang, ok=ok)
+        state = state.replace(place_fail=stack.fails)
+
     state = B.set_blocks(state, shape[:, None], colour[:, None],
-                         per_env(BLOCK_POSE[0])[:, None],
-                         per_env(BLOCK_POSE[1])[:, None],
+                         block_pos[:, None], block_ang[:, None],
                          torch.ones((batch, 1), dtype=torch.bool,
                                     device=device))
-    return B.finalize_robot(state, per_env(ROBOT_POSE[0]),
-                            per_env(ROBOT_POSE[1]))
+    return B.finalize_robot(state, robot_pos, robot_ang)
 
 
 def score(state):
@@ -75,6 +90,18 @@ def score(state):
     succeed = math.sqrt(2) / 2
     furthest = math.sqrt(2)
     return torch.clamp((furthest - dist) / (furthest - succeed), 0.0, 1.0)
+
+
+def debug_shaped_reward(state):
+    """move_to_corner.py:84-98 — dense debug reward for RL sanity checks."""
+    shape_pos = state.pos[..., 5, :]
+    robot_pos = state.pos[..., 0, :]
+    s = shape_pos - torch.tensor([0.0, 1.0], device=shape_pos.device)
+    r = robot_pos - shape_pos
+    s2c = torch.sqrt(s[..., 0] * s[..., 0] + s[..., 1] * s[..., 1])
+    r2s = torch.sqrt(r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1])
+    shaping = -s2c / 5.0 - torch.clamp(r2s, min=0.2) / 20.0
+    return shaping + score(state)
 
 
 TASK = B.TaskDef(

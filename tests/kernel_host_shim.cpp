@@ -54,12 +54,19 @@ extern "C" int physics_control_step(
   return 0;
 }
 
-extern "C" int render_lo_frame(
-    const void* verts, const void* nv, const void* radius, const void* color,
-    const void* active, const void* kind, const void* lw, const void* pos,
-    const void* angle, void* out, int B, int P, int res, int nb, int ego,
-    float scale, float half, float npx, float npy, float lw_scale,
-    float two_scale, float bg0, float bg1, float bg2, void* stream) {
+namespace {
+
+// The host loop of render_lo.cu / render_hi.cu: stage each env's display
+// list as the kernels stage it in shared memory, then shade every output
+// pixel (lo: shade_pixel; hi: shade_pixel_hi, the camera on the 4x grid).
+template <bool HI>
+int render_frame(const void* verts, const void* nv, const void* radius,
+                 const void* color, const void* active, const void* kind,
+                 const void* lw, const void* pos, const void* angle,
+                 void* out, int B, int P, int res, int nb, int ego,
+                 float scale, float half, float npx, float npy,
+                 float lw_scale, float two_scale, float bg0, float bg1,
+                 float bg2) {
   using namespace magical_render;
   if (P > 64) return 1;
   Prim prims[64];
@@ -73,14 +80,15 @@ extern "C" int render_lo_frame(
       }
       p.nv = ((const int*)nv)[q];
       p.rad = ((const float*)radius)[q];
-      for (int c = 0; c < 3; ++c) p.col[c] = ((const float*)color)[q * 3 + c];
+      for (int c = 0; c < 3; ++c)
+        p.col[c] = ((const float*)color)[q * 3 + c];
       p.active = ((const unsigned char*)active)[q] != 0;
       p.kind = ((const int*)kind)[i];
       p.lw = ((const float*)lw)[i];
       prim_faces(p);
     }
-    Camera cam = {res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f, 0.0f,
-                  lw_scale, two_scale, {bg0, bg1, bg2}};
+    Camera cam = {HI ? 4 * res : res, ego, scale, half, npx, npy, 1.0f,
+                  0.0f, 0.0f, 0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
     if (ego) {
       const float a = ((const float*)angle)[b * nb];
       cam.c = cosf(a);
@@ -88,9 +96,35 @@ extern "C" int render_lo_frame(
       cam.rx = ((const float*)pos)[b * nb * 2];
       cam.ry = ((const float*)pos)[b * nb * 2 + 1];
     }
-    for (int pix = 0; pix < res * res; ++pix)
-      shade_pixel(prims, P, cam, pix / res, pix % res,
-                  (unsigned char*)out + ((size_t)b * res * res + pix) * 3);
+    for (int pix = 0; pix < res * res; ++pix) {
+      unsigned char* rgb =
+          (unsigned char*)out + ((size_t)b * res * res + pix) * 3;
+      if (HI)
+        shade_pixel_hi(prims, P, cam, pix / res, pix % res, rgb);
+      else
+        shade_pixel(prims, P, cam, pix / res, pix % res, rgb);
+    }
   }
   return 0;
+}
+
+}  // namespace
+
+#define RENDER_ARGS                                                        \
+  const void *verts, const void *nv, const void *radius, const void *color, \
+      const void *active, const void *kind, const void *lw,                \
+      const void *pos, const void *angle, void *out, int B, int P,         \
+      int res, int nb, int ego, float scale, float half, float npx,        \
+      float npy, float lw_scale, float two_scale, float bg0, float bg1,    \
+      float bg2, void *stream
+#define RENDER_PASS                                                       \
+  verts, nv, radius, color, active, kind, lw, pos, angle, out, B, P, res, \
+      nb, ego, scale, half, npx, npy, lw_scale, two_scale, bg0, bg1, bg2
+
+extern "C" int render_lo_frame(RENDER_ARGS) {
+  return render_frame<false>(RENDER_PASS);
+}
+
+extern "C" int render_hi_frame(RENDER_ARGS) {
+  return render_frame<true>(RENDER_PASS);
 }

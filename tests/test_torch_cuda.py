@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: ragged batch sizes, the wrappers' input checks, the ring-slot
-write and the whole slice on CUDA against the same slice on the CPU.
+write, the hi render at 96² and 384², and the slices on CUDA against the
+same slices on the CPU.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -26,6 +27,11 @@ NAME = 'MoveToCorner-Demo-LoRes4E-v0'
 # to 1e-6.  Frames: within 1 uint8 level.
 STEP_MEDIAN_ATOL = 1e-6
 MAX_LEVELS = 1
+# Hi frames: hard fill edges, one subpixel rounding to the other side
+# moves a value by up to 16 levels; the kernel rounds as the plain version
+# does and is held to at most that on at most 1e-5 of the values.
+HI_MAX_LEVELS = 16
+HI_MAX_SHARE = 1e-5
 
 
 @pytest.fixture
@@ -117,3 +123,75 @@ def test_slice_on_cuda_matches_the_slice_on_the_cpu(cuda):
     torch.testing.assert_close(gc.state.pos.cpu(), cc.state.pos, rtol=0,
                                atol=1e-4)
     assert gc.t == cc.t == 8
+
+
+def _hi_close(got, plain):
+    d = (got.int() - plain.int()).abs()
+    assert int(d.max()) <= HI_MAX_LEVELS
+    assert float((d > 0).double().mean()) <= HI_MAX_SHARE
+
+
+@pytest.mark.parametrize('batch', [1, 5, 300])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_hi_render_kernel_any_batch(cuda, batch, view):
+    env = BatchedEnv('MoveToRegion-TestAll-LoRes4E-v0', device=cuda)
+    carry, _ = env.reset(3, batch)
+    st = carry.state
+    args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
+    plain = render.render_views(st, *args, views=(view,), fidelity='hi',
+                                static_shapes=env.static_shapes)[view]
+    n = render_kernel.render_views_hi.launches
+    fresh = render_kernel.render_views_hi(
+        st, *args, views=(view,), static_shapes=env.static_shapes)[view]
+    assert render_kernel.render_views_hi.launches == n + 1
+    spec = preproc.PreprocSpec(None, **{f'{view}_frames': 4})
+    ring = torch.full((4, batch, 96, 96, 3), 7, dtype=torch.uint8,
+                      device=cuda)
+    render_kernel.render_hi_into_slots(st, {view: ring}, 5, *args, spec,
+                                       static_shapes=env.static_shapes)
+    torch.cuda.synchronize()
+    assert bool((ring[[0, 2, 3]] == 7).all())          # slot 5 mod 4 only
+    for got in (fresh, ring[1]):
+        _hi_close(got, plain)
+
+
+def test_hi_render_kernel_raw_384_every_block_shape(cuda):
+    env = BatchedEnv('MoveToCorner-TestShape-v0', fidelity='hi',
+                     device=cuda)
+    carry, obs = env.reset(0, 4)
+    st = carry.state
+    st.block_shape[:, 0] = torch.tensor(C.RAND_SHAPE_TYPES,
+                                        dtype=torch.int32, device=cuda)
+    got = render_kernel.render_views_hi(st, 1, 1, True, res=384)
+    plain = render.render_views(st, 1, 1, True, res=384, fidelity='hi')
+    for v in ('allo', 'ego'):
+        assert got[v].shape == (4, 384, 384, 3)
+        _hi_close(got[v], plain[v])
+
+
+def test_hi_render_kernel_rejects_what_it_does_not_take(cuda):
+    _, st, _ = _states(2, 0, cuda)
+    out = render_kernel.render_views_hi(st, 1, 1, True)
+    assert out['ego'].device.type == 'cuda'
+    # ClusterColour's 10 blocks: 138 display prims, the kernel stages 64
+    wide = make_initial_state(2, 10, 1, cuda)
+    with pytest.raises(ValueError, match='64'):
+        render_kernel.render_views_hi(wide, 10, 1, False)
+
+
+def test_hi_slice_on_cuda_matches_the_slice_on_the_cpu(cuda):
+    """MoveToCorner-TestAll at hi fidelity: the same seeded reset (drawn on
+    the CPU generator either way) on both devices."""
+    name = 'MoveToCorner-TestAll-LoRes4E-v0'
+    out = {}
+    for d in ('cpu', cuda):
+        env = BatchedEnv(name, fidelity='hi', device=d)
+        carry, obs = env.reset(5, 8)
+        out[d] = (carry.state.pos.cpu(), obs.cpu().int(),
+                  carry.state.place_fail.cpu())
+    (cp, co, cf), (gp, go, gf) = out['cpu'], out[cuda]
+    torch.testing.assert_close(gp, cp, rtol=0, atol=1e-5)
+    assert torch.equal(gf, cf)
+    d = (go - co).abs()
+    assert int(d.max()) <= HI_MAX_LEVELS
+    assert float((d > 0).float().mean()) <= 1e-3

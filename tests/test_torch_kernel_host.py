@@ -45,7 +45,7 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
     for name in ('physics_table_layout', 'physics_control_step',
-                 'render_lo_frame'):
+                 'render_lo_frame', 'render_hi_frame'):
         fn = getattr(lib, name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -138,5 +138,31 @@ def test_render_kernel_arithmetic_matches_plain(host_lib, view):
     plain = render.render_views(st, 1, 1, True, views=(view,),
                                 fidelity='lo', static_shapes=SS)[view]
     # same operations in the same order, rounded one by one: byte-equal
+    assert torch.equal(out, plain)
+    assert np.unique(plain.numpy()).size > 20
+
+
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_hi_render_kernel_arithmetic_matches_plain(host_lib, view):
+    """K4's subpixel compositing and 4x4 box mean, on every block shape a
+    Test variant draws and an active goal (light fill + stippled border)."""
+    st, _ = _rollout(4, 4, 5)[-1]
+    st.block_shape[:, 0] = torch.tensor(C.RAND_SHAPE_TYPES, dtype=torch.int32)
+    st.goal_active[:, 0] = True
+    st.goal_xyhw[:, 0] = torch.tensor([-0.3, 0.2, 0.7, 0.6])
+    st.goal_colour[:, 0] = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    disp = render_kernel.kernel_display(st, 1, 1, True, None)
+    out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
+    ptrs = [disp[k].data_ptr() for k in
+            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
+    ptrs += [st.pos.data_ptr(), st.angle.data_ptr(), out.data_ptr()]
+    rc = host_lib.render_hi_frame(
+        *ptrs, st.batch, disp['nv'].shape[1], 96, st.n_bodies,
+        *render_kernel.camera_args(view, 4 * 96), None)
+    assert rc == 0
+    plain = render.render_views(st, 1, 1, True, views=(view,),
+                                fidelity='hi', static_shapes=None)[view]
+    # hard edges: one subpixel rounding the other way would move a value
+    # by up to 16 levels; the same operations in the same order leave none
     assert torch.equal(out, plain)
     assert np.unique(plain.numpy()).size > 20

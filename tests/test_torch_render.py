@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from magical_tpu import constants as JC
 from magical_tpu.core import physics as JP
 from magical_tpu.core import preproc as JPre
 from magical_tpu.core import render as JR
@@ -30,11 +31,15 @@ LO_MAX_LEVELS = 1
 LO_MAX_SHARE = 1e-3
 
 
-def _states(goal=False):
+def _states(goal=False, shapes=False):
     """B MoveToCorner-Demo states after 3 random steps; with `goal`, the
     (normally inactive) goal slot is activated with random boxes so that
-    the stippled outline is drawn too."""
+    the stippled outline is drawn too; with `shapes`, the block takes each
+    shape a Test variant draws."""
     js = jax_demo_states(B)
+    if shapes:
+        js = js.replace(block_shape=jnp.asarray(
+            JC.RAND_SHAPE_TYPES, jnp.int32)[:, None])
     rng = np.random.default_rng(0)
     step = jax.jit(jax.vmap(JP.control_step))
     for _ in range(3):
@@ -50,10 +55,11 @@ def _states(goal=False):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_render(fidelity):
+def _jax_render(fidelity, static_shapes=SS, res=96, robot_first=True):
     return jax.jit(jax.vmap(functools.partial(
-        JR.render_views, max_blocks=1, max_goals=1, robot_first=True,
-        views=('allo', 'ego'), fidelity=fidelity, static_shapes=SS)))
+        JR.render_views, max_blocks=1, max_goals=1, robot_first=robot_first,
+        res=res, views=('allo', 'ego'), fidelity=fidelity,
+        static_shapes=static_shapes)))
 
 
 def _jax_views(js, fidelity):
@@ -101,26 +107,72 @@ def test_render_views_hi_byte_equal():
                                       err_msg=v)
 
 
+# Hi fidelity against the JAX package: fills have hard edges, so a pixel
+# centre that XLA rounds differently (it computes the ego camera's rotation
+# as a dot product: 1 ulp apart from the port's on about half of the pixel
+# centres) can put one subpixel on the other side of an edge, which moves
+# its output value by up to 16 levels.  On the same pixel centres the two
+# agree exactly.  Held to: at most one such subpixel per output value (16
+# levels), on at most 0.1% of the channel values.
+HI_MAX_LEVELS = 16
+HI_MAX_SHARE = 1e-3
+
+
+def _assert_hi_close(got, want):
+    d = np.abs(got.numpy().astype(int) - np.asarray(want).astype(int))
+    assert d.max() <= HI_MAX_LEVELS
+    assert (d > 0).mean() <= HI_MAX_SHARE
+
+
+def test_render_views_hi_test_shapes_and_goals():
+    """Every block shape a Test variant draws, no static shape table (the
+    display list of randomised shapes), an active goal."""
+    js, ts = _states(goal=True, shapes=True)
+    j = _jax_render('hi', None)(js)
+    t = TR.render_views(ts, 1, 1, True, views=('allo', 'ego'),
+                        fidelity='hi', static_shapes=None)
+    for v in ('allo', 'ego'):
+        assert t[v].shape == (B, 96, 96, 3)
+        _assert_hi_close(t[v], j[v])
+
+
+def test_render_views_hi_raw_384():
+    """The raw observation at hi fidelity: 384² frames from a 1536²
+    subpixel grid, one MoveToRegion-TestAll env."""
+    t = JT['MoveToRegion']
+    js = jax.jit(jax.vmap(lambda k: t.reset_fn(k, t.flags_for('TestAll'))))(
+        jax.random.split(jax.random.PRNGKey(1), 1))
+    ss = t.static_block_shapes(t.flags_for('TestAll'))
+    j = _jax_render('hi', ss, 384, False)(js)
+    tv = TR.render_views(jax_to_torch(js), 1, 1, False, res=384,
+                         views=('allo', 'ego'), fidelity='hi',
+                         static_shapes=ss)
+    for v in ('allo', 'ego'):
+        assert tv[v].shape == (1, 384, 384, 3)
+        _assert_hi_close(tv[v], j[v])
+
+
 def test_render_kernel_wrappers_take_plain_path_on_cpu():
     _, ts = _states()
-    TRK.render_views_lo.launches = 0
-    TRK.render_into_slots.launches = 0
-    plain = TR.render_views(ts, 1, 1, True, views=('allo', 'ego'),
-                            fidelity='lo', static_shapes=SS)
-    fresh = TRK.render_views_lo(ts, 1, 1, True, views=('allo', 'ego'),
-                                static_shapes=SS)
-    spec = TPre.PREPROCESSORS['LoRes3EA']
-    rings = {v: torch.zeros((spec.depth(v), B, 96, 96, 3), dtype=torch.uint8)
-             for v in spec.views}
-    TRK.render_into_slots(ts, rings, 5, 1, 1, True, spec, static_shapes=SS)
-    assert TRK.render_views_lo.launches == 0
-    assert TRK.render_into_slots.launches == 0
-    for v in ('allo', 'ego'):
-        assert torch.equal(fresh[v], plain[v])
-        slot = 5 % spec.depth(v)
-        assert torch.equal(rings[v][slot], plain[v])
-        others = [k for k in range(spec.depth(v)) if k != slot]
-        assert all(int(rings[v][k].max()) == 0 for k in others)
+    wrappers = {'lo': (TRK.render_views_lo, TRK.render_into_slots),
+                'hi': (TRK.render_views_hi, TRK.render_hi_into_slots)}
+    for fidelity, (fresh_fn, slots_fn) in wrappers.items():
+        fresh_fn.launches = slots_fn.launches = 0
+        plain = TR.render_views(ts, 1, 1, True, views=('allo', 'ego'),
+                                fidelity=fidelity, static_shapes=SS)
+        fresh = fresh_fn(ts, 1, 1, True, views=('allo', 'ego'),
+                         static_shapes=SS)
+        spec = TPre.PREPROCESSORS['LoRes3EA']
+        rings = {v: torch.zeros((spec.depth(v), B, 96, 96, 3),
+                                dtype=torch.uint8) for v in spec.views}
+        slots_fn(ts, rings, 5, 1, 1, True, spec, static_shapes=SS)
+        assert fresh_fn.launches == 0 and slots_fn.launches == 0
+        for v in ('allo', 'ego'):
+            assert torch.equal(fresh[v], plain[v])
+            slot = 5 % spec.depth(v)
+            assert torch.equal(rings[v][slot], plain[v])
+            others = [k for k in range(spec.depth(v)) if k != slot]
+            assert all(int(rings[v][k].max()) == 0 for k in others)
 
 
 @pytest.mark.parametrize('name', list(JPre.PREPROCESSORS))
