@@ -7,23 +7,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
   1. device  — requires a CUDA card; prints its name and power limit.
   2. build   — compiles each csrc/*.cu with its own nvcc for sm_90a into
-               build/, all at once.
+               build/, all at once, and prints what ptxas reports for
+               each kernel (registers, stack frame, spills).
   3. kernels — each kernel against its plain PyTorch version on the card,
                at B = 512, on states from seeded random-action rollouts of
                MoveToCorner-Demo, MoveToCorner-TestAll (every block shape,
-               randomised dynamics) and MoveToRegion-TestAll (active
-               goals): the control step (1 and 5 steps), the lo render
-               into a ring slot and into a fresh frame, and, on the Test
-               states, the hi render into a ring slot and into a fresh
-               frame (allo and ego views); the hi render at 384² on 4
-               MoveToRegion-TestAll states; and the slice on the card
-               against the slice on the CPU.
+               randomised dynamics), MoveToRegion-TestAll (active goals)
+               and the Demo and TestAll variants of the six multi-block
+               families (3 to 10 blocks, up to 138 display prims): the
+               control step (1 and 5 steps), the lo render into a ring
+               slot and into a fresh frame, the 2-D tiled lo render
+               (tiles of 16² and 32², byte-equal to the plain lo render
+               and to the fresh-frame kernel) and, on the Test states, the
+               hi render into a ring slot and into a fresh frame (allo and
+               ego views); the hi and the tiled lo render at 384² on 4
+               MoveToRegion-TestAll and 4 ClusterColour-TestAll states;
+               and the slice on the card against the slice on the CPU.
   4. main    — MoveToCorner-Demo-LoRes4E-v0 at 4096 envs: reset, then a
                full 80-step episode with seeded random actions, counting
                kernel launches and timing the steps with CUDA events;
                then, from the episode's last state, each kernel against
                its plain version at the main path's shapes (one control
-               step; allo and ego frames), and both timed there.
+               step; allo and ego frames).
   5. hi      — MoveToCorner-TestAll-LoRes4E-v0 at hi fidelity, 1024 envs:
                reset and a full 80-step episode through the control step
                and the hi render, counted and timed as `main` is.
@@ -31,11 +36,37 @@ Phases, each of which raises (and so exits non-zero) on failure:
                adapter at hi fidelity on the card: raw 384² {allo, ego}
                observations, a full 40-step episode, render() and the
                end-of-episode score.
-  7. times   — the hi render kernel and its plain version at the hi
-               path's shapes.
+  7. multi   — the six multi-block families at 4096 envs:
+               ClusterColour-Demo-LoRes4E-v0 for a whole 240-step episode
+               (checked as `main` is, and its last state by
+               validate.state_finite); then <Family>-Demo-LoRes4E-v0 of
+               every family, MoveToRegion's too, 5 warm-up and 20 timed
+               steps each, and the mean env-steps/s over the 8 families;
+               ClusterColour-TestAll-LoRes4E-v0 (138 display prims) for
+               5 + 20 steps, with the card's busy share from a profiler
+               trace of 3 more; its frames through
+               render_views_lo(tiles2d=(16, 16)), equal to the ring slot
+               the step wrote; and ClusterColour-TestAll at hi fidelity,
+               1024 envs, 5 + 5 steps.  Every path zeroes the launch
+               counts just before it and reads them just after.
+  8. times   — each kernel (time_kernel) on the last state of each path
+               that runs it, beside its plain version, the kernel alone
+               and the display-list build: the control step at every
+               block count (4096 envs; mb 10 on Demo and on TestAll
+               states); the lo renders (ring slot, fresh frame) on the
+               main path and at 138 prims, the 2-D tiled lo render at 138
+               prims (4096 envs); the hi render on the hi path and at 138
+               prims (1024 envs).
 
-The last two lines of standard output are one JSON object per kernel
-table and the result line {"ok": true, "device": {...}}.
+Every kernel's line in the JSON table carries its bound: the larger of
+its operations over 67 TFLOP/s (float32, outside the tensor cores) and
+its bytes over 3.35 TB/s, the H100 SXM's published peaks at 700 W,
+counted from this run's inputs by the models in `k1_work` and
+`render_work`.
+
+The last three lines of standard output are the card's name and power
+limit, one JSON object with the kernel table and the result line
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -56,6 +87,16 @@ CHECK_BATCH = 512
 RAW_CHECK_BATCH = 4
 SEED = 0
 DEVICE = 'cuda'
+# The six multi-block task families and their block counts.
+FAMILIES = {'FixColour': 3, 'MakeLine': 4, 'FindDupe': 7, 'MatchRegions': 8,
+            'ClusterColour': 10, 'ClusterShape': 10}
+MULTI_EPISODE = 'ClusterColour-Demo-LoRes4E-v0'
+WIDE_NAME = 'ClusterColour-TestAll-LoRes4E-v0'    # 138 display prims
+MULTI_WARM, MULTI_STEPS = 5, 20
+TILES = ((16, 16), (32, 32))
+# The H100 SXM's published peaks at 700 W (NVIDIA's data sheet).
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 # Tolerances, kernel against plain version on the same inputs.
 #  * Physics is chaotic: the plain version's own 1-ulp change of every
@@ -83,6 +124,9 @@ DEVICE = 'cuda'
 #    kernel repeats the plain version's operations in its order and is
 #    expected byte-equal.  Held to at most one such subpixel (16 levels)
 #    in at most 1e-5 of the channel values.
+#  * The 2-D tiled lo render culls only prims whose alpha is exactly 0 on
+#    the tile, and composites the rest as the fresh-frame kernel does:
+#    byte-equal to it and to the plain lo render, no tolerance.
 PHYS_FLOOR = {'pos': 1e-4, 'angle': 1e-4, 'vel': 1e-3, 'omega': 1e-3,
               'con_jn': 1e-3, 'con_jt': 1e-3, 'joint_acc': 1e-3}
 CHAOS_FACTOR = 2.0
@@ -128,13 +172,139 @@ def phase_device():
 
 
 def phase_build():
+    import re
     from magical_tpu_torch import _build
     t0 = time.perf_counter()
     _build.library(verbose=True)
     dt = time.perf_counter() - t0
     print(f'[build] nvcc {" ".join(_build.NVCC_FLAGS)}: {dt:.3f} s '
           f'(nvcc alone {_build.BUILD_SECONDS} s) -> {_build.BUILD_DIR}')
+    # ptxas -v, one line per kernel: registers, stack frame, spills
+    log = _build.BUILD_DIR / 'build.log'
+    name = frame = src = None
+    for line in (log.read_text().splitlines() if log.is_file() else ()):
+        if ' -o ' in line:
+            src = os.path.basename(line.split()[-1])
+        m = re.fullmatch(r'(\d+\.\d+) s', line)
+        if m:
+            print(f'[build] nvcc {src}: {m.group(1)} s')
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m:
+            frame = m.groups()
+        m = re.search(r'Used (\d+) registers', line)
+        if m and name:
+            print(f'[build] ptxas {name}: {m.group(1)} registers, '
+                  f'{frame[0] if frame else "?"} bytes stack frame, spill '
+                  f'stores/loads {frame[1] if frame else "?"}/'
+                  f'{frame[2] if frame else "?"} bytes')
+            name = frame = None
     return dt
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    `ops` float32 operations moving `nbytes` bytes."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            'operations' if t_ops >= t_bytes else 'bytes')
+
+
+def k1_work(state):
+    """(operations, bytes) of one control step of `state` (K1), counted
+    from the kernel's loops (csrc/physics_step.cuh) over what each env of
+    this state runs, which skips inactive sub-shapes: per substep, every
+    slot's vertices transformed (6 ops a vertex), the 4 walls against each
+    active slot (60), each sub-shape pair of two active slots through SAT
+    over both polygons' 8 faces and 8 vertices, incident face and
+    clipping (720), and each live contact's prestep and warm-start match
+    over the cache (60 + 2 MAXC); per solver iteration, each live contact
+    (70) and the joint sweep (250 + 40 a block).  Bytes: every state
+    tensor the kernel takes read once and written once."""
+    import torch
+    from magical_tpu_torch import constants as C
+    from magical_tpu_torch.core import physics, physics_kernel
+    mb = state.max_blocks
+    nb, ns = 5 + mb, 5 + 6 * mb
+    active = physics.slot_geometry(state)[3]                # (B, NS)
+    sa, sb = (torch.as_tensor(x, device=active.device).long()
+              for x in physics.pair_table(mb))
+    n_slots = active.sum(1).double()
+    n_pairs = (active[:, sa] & active[:, sb]).sum(1).double()
+    maxc = state.con_id.shape[1]
+    nc = (state.con_id >= 0).sum(1).double()              # (B,)
+    per_sub = (ns * 8 * 6 + 4 * n_slots * 60 + n_pairs * 720 + nb * 12
+               + nc * (60 + 2 * maxc)
+               + C.PHYS_ITER * (nc * 70 + 250 + 40 * mb))
+    ops = float((C.PHYS_STEPS * per_sub).sum())
+    nbytes = 2 * sum(getattr(state, f).nelement()
+                     * getattr(state, f).element_size()
+                     for f, _, _ in physics_kernel._fields(mb))
+    return ops, nbytes
+
+
+def _prim_ops(disp, hard=False):
+    """(B, P) operations per pixel (per subpixel if `hard`) of each
+    active prim in the compositing loop (csrc/render_lo.cuh shade_levels):
+    a polygon's SDF 5 a face, a circle's 7, coverage 4 (1 for a hard
+    fill), an outline's band 6 more, a stippled one's perimeter phase 92
+    more, and the blend 12."""
+    from magical_tpu_torch.core import render
+    nv = disp['nv'].double()
+    kind = disp['kind'][None, :].expand_as(disp['nv'])
+    sdf = _where64(nv == 1, 7.0, 5.0 * nv + 1.0)
+    cover = _where64(kind == render.KIND_FILL, 1.0 if hard else 4.0, 6.0)
+    stip = _where64(kind == render.KIND_LINE_STIPPLE, 92.0, 0.0)
+    return (sdf + cover + stip + 12.0) * disp['active'].double()
+
+
+def _where64(c, a, b):
+    import torch
+    return torch.where(c, torch.as_tensor(a, dtype=torch.float64,
+                                          device=c.device),
+                       torch.as_tensor(b, dtype=torch.float64,
+                                       device=c.device))
+
+
+def _samples_in(lo, hi, n, sub):
+    """How many of the sample centres (s + 0.5) / sub, 0 <= s < n, lie in
+    [lo, hi] (pixel units)."""
+    first = (lo * sub - 0.5).ceil().clamp(0, n)
+    last = (hi * sub - 0.5).floor().clamp(-1, n - 1)
+    return (last - first + 1).clamp(min=0)
+
+
+def render_work(disp, state, view, res, fidelity='lo'):
+    """(operations, bytes, prims per sample) of one view's frames of
+    `state` at `res`: the least work that gives them, which is the same
+    for every kernel that renders them (K2, K3 and K5 at lo).  Each pixel
+    (at hi fidelity each of its 16 subpixels) is composited over the
+    active prims whose cull box holds it (prim_screen_bboxes, K5's box,
+    outside which a prim's lo alpha and hi coverage are exactly 0), each
+    prim at its _prim_ops; the camera and the quantise 22 ops a pixel or
+    subpixel, the 4x4 mean 60 ops a pixel.  Bytes: the display list, the
+    robot pose and the uint8 frames, once each."""
+    import torch
+    from magical_tpu_torch.core import render_kernel
+    sub = 4 if fidelity == 'hi' else 1
+    n = res * sub
+    bb, bounded = render_kernel.prim_screen_bboxes(disp, state, view, res)
+    bb = bb.double()
+    area = (_samples_in(bb[..., 0], bb[..., 1], n, sub)
+            * _samples_in(bb[..., 2], bb[..., 3], n, sub))
+    area = torch.where(bounded, area, float(n * n)) \
+        * disp['active'].double()                           # (B, P)
+    per_prim = _prim_ops(disp, hard=fidelity == 'hi')
+    ops = float((per_prim * area).sum()) + state.batch * n * n * 22 + (
+        state.batch * res * res * 60 if fidelity == 'hi' else 0)
+    nbytes = (sum(x.nelement() * x.element_size() for x in disp.values())
+              + state.pos[:, 0].nelement() * 4
+              + state.angle[:, 0].nelement() * 4
+              + state.batch * res * res * 3)
+    return ops, nbytes, float(area.sum()) / (state.batch * n * n)
 
 
 def rollout_states(batch, n_steps, name=ENV_NAME):
@@ -154,23 +324,38 @@ def rollout_states(batch, n_steps, name=ENV_NAME):
     return env, carry.state.clone(), nxt
 
 
-def phys_compare(state0, actions, n_steps):
-    """Kernel vs plain vs plain-with-1-ulp-perturbed-positions after
-    n_steps; raises if the kernel is outside the tolerance."""
+def phys_compare(state0, actions, checks=(1, 5)):
+    """Kernel vs plain vs plain-with-1-ulp-perturbed-positions, checked
+    after each number of steps in `checks`; raises if the kernel is
+    outside the tolerance.  Returns the largest 1-step position error."""
     import torch
     from magical_tpu_torch.core import physics, physics_kernel
+    B = state0.batch
     sk = state0.clone()
-    sp = state0.clone()
     sc = state0.clone()
     sc.pos = torch.nextafter(sc.pos, torch.full_like(sc.pos, float('inf')))
-    for i in range(n_steps):
+    # the plain version steps both inputs in one batch of 2B envs: every
+    # env is independent, and its time is mostly launch overhead
+    both = cat_states(state0.clone(), sc)
+    out = None
+    for i in range(max(checks)):
         sk = physics_kernel.control_step(sk, actions[i])
-        sp = physics.control_step(sp, actions[i])
-        sc = physics.control_step(sc, actions[i])
+        both = physics.control_step(both, torch.cat([actions[i]] * 2))
+        if i + 1 in checks:
+            sp, sc = (slice_envs(both, k * B, (k + 1) * B) for k in (0, 1))
+            err = phys_check(B, sk, sp, sc, i + 1)
+            out = err if out is None else out
+    return out
+
+
+def phys_check(batch, sk, sp, sc, n_steps):
+    """The tolerance of phys_compare after n_steps: kernel `sk`, plain
+    `sp`, plain from 1-ulp-perturbed positions `sc`."""
+    import torch
     torch.cuda.synchronize()
     report = {}
     for f, floor in PHYS_FLOOR.items():
-        k, p, c = (getattr(s, f).double().reshape(state0.batch, -1)
+        k, p, c = (getattr(s, f).double().reshape(batch, -1)
                    for s in (sk, sp, sc))
         err = (k - p).abs().amax(1)
         chaos = (c - p).abs().amax(1)
@@ -189,7 +374,7 @@ def phys_compare(state0, actions, n_steps):
             tol = max(TAIL_SHARE, CHAOS_FACTOR * c_share)
             ok = ok and share <= tol
             rule = f'share > 10 floors {share:.3%} <= {tol:.3%}'
-        line = (f'K1 B={state0.batch} {n_steps}-step {f:9s} err '
+        line = (f'K1 mb={sk.max_blocks} B={batch} {n_steps}-step {f:9s} err '
                 'p50/p90/p99/max ' + '/'.join(f'{x:.2e}' for x in eq)
                 + '  1-ulp chaos '
                 + '/'.join(f'{x:.2e}' for x in cq) + f'  {rule}')
@@ -201,7 +386,7 @@ def phys_compare(state0, actions, n_steps):
     cid_chaos = float((sc.con_id != sp.con_id).any(1).double().mean())
     cid_tol = max(0.01 if n_steps == 1 else TAIL_SHARE,
                   CHAOS_FACTOR * cid_chaos)
-    print(f'[kernels] K1 B={state0.batch} {n_steps}-step con_id differs in '
+    print(f'[kernels] K1 mb={sk.max_blocks} B={batch} {n_steps}-step con_id differs in '
           f'{cid:.3%} of envs '
           f'(1-ulp chaos {cid_chaos:.3%}, tol {cid_tol:.3%})')
     if cid > cid_tol:
@@ -250,9 +435,23 @@ def render_compare(env, state):
 
 def first_envs(state, n):
     """The first n envs of a batched state."""
+    return slice_envs(state, 0, n)
+
+
+def slice_envs(state, lo, hi):
+    """Envs lo..hi-1 of a batched state."""
     import dataclasses
-    return type(state)(**{f.name: getattr(state, f.name)[:n].contiguous()
+    return type(state)(**{f.name: getattr(state, f.name)[lo:hi].contiguous()
                           for f in dataclasses.fields(state)})
+
+
+def cat_states(a, b):
+    """Two batched states as one, a's envs first."""
+    import dataclasses
+    import torch
+    return type(a)(**{f.name: torch.cat([getattr(a, f.name),
+                                         getattr(b, f.name)])
+                      for f in dataclasses.fields(a)})
 
 
 def hi_diff(name, got, plain, where):
@@ -322,21 +521,59 @@ def slice_compare():
         raise AssertionError('the slice on the card left the CPU slice')
 
 
+def tiles_compare(env, state, res=96):
+    """K5 through render_views_lo(tiles2d=...) against the plain lo render
+    and against K3 (the fresh-frame kernel), allo and ego, for each tile
+    shape of TILES; raises unless all three are byte-equal."""
+    import torch
+    from magical_tpu_torch.core import render, render_kernel
+    args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
+    ss = env.static_shapes
+    for view in ('allo', 'ego'):
+        plain = render.render_views(state, *args, res=res, views=(view,),
+                                    fidelity='lo', static_shapes=ss)[view]
+        k3 = render_kernel.render_views_lo(state, *args, res=res,
+                                           views=(view,),
+                                           static_shapes=ss)[view]
+        for tiles in TILES:
+            k5 = render_kernel.render_views_lo(
+                state, *args, res=res, views=(view,), static_shapes=ss,
+                tiles2d=tiles)[view]
+            torch.cuda.synchronize()
+            d = int((k5.int() - plain.int()).abs().max())
+            same = torch.equal(k5, plain) and torch.equal(k5, k3)
+            print(f'[kernels] K5 {tiles[0]}x{tiles[1]} B={state.batch} '
+                  f'{res}² {view}: max |diff| {d} levels from plain, '
+                  f'byte-equal to plain and K3: {same}')
+            if not same:
+                raise AssertionError(f'K5 {tiles} {view} {res}² differs')
+
+
 def phase_kernels():
-    """Returns K4's max level difference."""
-    k4 = 0
-    for name in (ENV_NAME,) + TEST_ENV_NAMES:
+    """Returns the largest errors: K1's 1-step position error per block
+    count, K2/K3 levels, K4 levels (K5 is byte-equal or raises)."""
+    errs = {'K1': {}, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': 0}
+    names = [ENV_NAME, *TEST_ENV_NAMES]
+    for fam in FAMILIES:
+        names += [f'{fam}-Demo-LoRes4E-v0', f'{fam}-TestAll-LoRes4E-v0']
+    for name in names:
         env, state0, actions = rollout_states(CHECK_BATCH, 4, name)
-        print(f'[kernels] states of {name}, B={CHECK_BATCH}')
-        phys_compare(state0, actions, 1)
-        phys_compare(state0, actions, 5)
-        render_compare(env, state0)
+        mb = env.task.max_blocks
+        print(f'[kernels] states of {name}, B={CHECK_BATCH}, {mb} blocks')
+        k1 = phys_compare(state0, actions)
+        errs['K1'][mb] = max(errs['K1'].get(mb, 0.0), k1)
+        for k, v in render_compare(env, state0).items():
+            errs[k] = max(errs[k], v)
+        tiles_compare(env, state0)
         if name != ENV_NAME:
-            k4 = max(k4, hi_compare(env, state0, 96))
-    # raw observations: 384² frames, a 1536² subpixel grid
-    k4 = max(k4, hi_compare(env, first_envs(state0, RAW_CHECK_BATCH), 384))
+            errs['K4'] = max(errs['K4'], hi_compare(env, state0, 96))
+        if name in (TEST_ENV_NAMES[-1], WIDE_NAME):
+            # raw observations: 384² frames, a 1536² subpixel grid
+            few = first_envs(state0, RAW_CHECK_BATCH)
+            errs['K4'] = max(errs['K4'], hi_compare(env, few, 384))
+            tiles_compare(env, few, 384)
     slice_compare()
-    return k4
+    return errs
 
 
 def phase_main_shapes(env, carry):
@@ -346,7 +583,7 @@ def phase_main_shapes(env, carry):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     act = torch.randint(0, 18, (1, carry.state.batch), generator=gen,
                         device=DEVICE, dtype=torch.int32)
-    return {'K1': phys_compare(carry.state.clone(), act, 1),
+    return {'K1': phys_compare(carry.state.clone(), act, (1,)),
             **render_compare(env, carry.state)}
 
 
@@ -416,53 +653,6 @@ def phase_main(smi):
           f'mean {float(score.mean()):.6f} in [0, 1]; newest frame vs plain '
           f'render {d} levels')
     return env, carry, launches, rate
-
-
-def phase_times(env, carry):
-    """Each kernel and its plain version at the main path's shapes."""
-    import torch
-    from magical_tpu_torch.core import (physics, physics_kernel, preproc,
-                                        render, render_kernel)
-    state = carry.state.clone()
-    B = state.batch
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    act = torch.randint(0, 18, (B,), generator=gen, device=DEVICE,
-                        dtype=torch.int32)
-    args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
-    ss = env.static_shapes
-    spec = env.preproc
-    ring = {'ego': carry.frames['ego'].clone()}
-    times = {
-        'K1': (cuda_ms(lambda: physics_kernel.control_step(state, act), 10),
-               cuda_ms(lambda: physics.control_step(state, act), 2)),
-        'K2': (cuda_ms(lambda: render_kernel.render_into_slots(
-                   state, ring, 7, *args, spec, static_shapes=ss), 20),
-               cuda_ms(lambda: preproc.push_frames_cf(
-                   spec, ring, render.render_views(
-                       state, *args, views=('ego',), fidelity='lo',
-                       static_shapes=ss), 7), 3)),
-        'K3': (cuda_ms(lambda: render_kernel.render_views_lo(
-                   state, *args, views=('ego',), static_shapes=ss), 20),
-               cuda_ms(lambda: render.render_views(
-                   state, *args, views=('ego',), fidelity='lo',
-                   static_shapes=ss), 3)),
-    }
-    for k, (ms, plain_ms) in times.items():
-        print(f'[times] {k} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} '
-              f'ms')
-    # K2/K3 times include building the display list in plain PyTorch,
-    # as their plain versions do; this is that share alone.
-    disp_ms = cuda_ms(lambda: render_kernel.kernel_display(
-        state, *args, static_shapes=ss), 20)
-    print(f'[times] display list build (inside K2/K3 times) B={B}: '
-          f'{disp_ms:.4f} ms')
-    disp = render_kernel.kernel_display(state, *args, static_shapes=ss)
-    slot = ring['ego'][7 % spec.depth('ego')]
-    kern_ms = cuda_ms(lambda: render_kernel._launch(
-        'render_lo_into_slot', disp, state, slot, 'ego', 96), 50)
-    print(f'[times] lo render kernel alone (display list built) B={B}: '
-          f'{kern_ms:.4f} ms')
-    return times
 
 
 def phase_hi(smi):
@@ -589,32 +779,261 @@ def phase_gym():
     return err
 
 
-def phase_hi_times(env, carry):
-    """K4 and its plain version at the hi path's shapes."""
-    from magical_tpu_torch.core import preproc, render, render_kernel
+def counters():
+    """The launch counter of every kernel wrapper, by kernel."""
+    from magical_tpu_torch.core import physics_kernel, render_kernel as rk
+    return {'K1': physics_kernel.control_step, 'K2': rk.render_into_slots,
+            'K3': rk.render_views_lo, 'K4 frame': rk.render_views_hi,
+            'K4 slot': rk.render_hi_into_slots, 'K5': rk.render_lo_tiles2d}
+
+
+def zero_counts():
+    import torch
+    torch.cuda.synchronize()
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts():
+    return {k: c.launches for k, c in counters().items()}
+
+
+def drive(name, batch, n_steps=None, warm=MULTI_WARM, fidelity='lo'):
+    """Env `name` on the card: reset `batch` envs, then n_steps (default:
+    a whole episode) of seeded random actions, with the launch counts
+    zeroed just before and read just after, and the steps after `warm`
+    timed with CUDA events.  Returns a dict of what came out."""
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    env = BatchedEnv(name, fidelity=fidelity, device=DEVICE)
+    n_steps = n_steps or env.max_episode_steps
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    actions = torch.randint(0, 18, (n_steps, batch), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    zero_counts()
+    carry, obs = env.reset(SEED, batch)
+    dones, scores = [], []
+    for t in range(n_steps):
+        if t == warm:
+            start.record()
+        carry, obs, rew, done, info = env.step(carry, actions[t])
+        dones.append(done)
+        scores.append(info['eval_score'])
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ms = start.elapsed_time(end) / (n_steps - warm)
+    rate = batch / (ms / 1e3)
+    print(f'[multi] {name} fidelity={fidelity} B={batch}: {n_steps} steps, '
+          f'{n_steps - warm} timed at {ms:.3f} ms/step = {rate:.1f} '
+          f'env-steps/s; launches {launches}')
+    want = {'K1': n_steps, 'K2': n_steps if fidelity == 'lo' else 0,
+            'K4 slot': n_steps if fidelity == 'hi' else 0, 'K5': 0}
+    if any(launches[k] != n for k, n in want.items()) or (
+            launches['K3' if fidelity == 'lo' else 'K4 frame'] < 1):
+        raise AssertionError(f'{name}: kernel launches {launches}')
+    if tuple(obs.shape) != (batch, 96, 96, 12) or obs.dtype != torch.uint8:
+        raise AssertionError(f'{name}: obs {tuple(obs.shape)} {obs.dtype}')
+    return dict(env=env, carry=carry, obs=obs, done=torch.stack(dones),
+                scores=torch.stack(scores), launches=launches, rate=rate,
+                ms=ms)
+
+
+def device_busy(env, carry, n_steps=3):
+    """The card's busy share over n_steps more steps of `env` from
+    `carry`, from a torch.profiler trace (kernel and copy time on the
+    device over the host's wall time), and the host-to-device copies per
+    step; (None, None) where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    act = torch.zeros(carry.state.batch, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            carry, *_ = env.step(carry, act)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, h2d = 0.0, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, 'self_device_time_total',
+                         getattr(e, 'self_cuda_time_total', 0.0))
+        if str(getattr(e, 'device_type', '')).endswith('CUDA'):
+            busy_us += dev_us
+        if 'HtoD' in e.key:
+            h2d += e.count
+    if busy_us <= 0:
+        return carry, None, None
+    return carry, busy_us / 1e6 / wall, h2d / n_steps
+
+
+def phase_multi(smi, main_rate):
+    """The six multi-block families at 4096 envs (see the module
+    docstring); returns what the kernel table needs."""
+    import torch
+    from magical_tpu_torch.core import render, render_kernel, validate
+    out = {'K1 launches': {}, 'K1 carries': {}, 'rates': {}}
+
+    # a whole ClusterColour-Demo episode
+    r = drive(MULTI_EPISODE, MAIN_BATCH)
+    env, carry = r['env'], r['carry']
+    T = env.max_episode_steps
+    done, scores = r['done'], r['scores']
+    if bool(done[:-1].any()) or not bool(done[-1].all()):
+        raise AssertionError(f'multi: done is not true exactly at t = {T}')
+    score = scores[-1]
+    if not (bool(torch.isfinite(score).all()) and float(score.min()) >= 0.0
+            and float(score.max()) <= 1.0):
+        raise AssertionError('multi: scores outside [0, 1]')
+    if bool(scores[:-1].any()):
+        raise AssertionError('multi: eval_score nonzero before the last step')
+    newest = r['obs'][..., 9:12]
+    plain = render.render_views(carry.state, *env._render_args(),
+                                views=('ego',), fidelity='lo',
+                                static_shapes=env.static_shapes)['ego']
+    d = int((newest.int() - plain.int()).abs().max())
+    if d > RENDER_MAX_LEVELS:
+        raise AssertionError(f'multi: newest obs frame vs plain render: {d}')
+    if not bool(validate.state_finite(carry.state)):
+        raise AssertionError('multi: the last state left the envelope of '
+                             'validate.state_finite')
+    print(f'[multi] {MULTI_EPISODE} B={MAIN_BATCH}: done only at t={T}; '
+          f'score mean {float(score.mean()):.6f} in [0, 1]; newest frame vs '
+          f'plain render {d} levels; validate.state_finite holds on the last '
+          f'state')
+    out['K1 launches'][10] = r['launches']['K1']
+    del r, env, carry
+
+    # every family's Demo: bench.py's per-task rows
+    for fam in list(FAMILIES) + ['MoveToRegion']:
+        r = drive(f'{fam}-Demo-LoRes4E-v0', MAIN_BATCH,
+                  MULTI_WARM + MULTI_STEPS)
+        out['rates'][fam] = r['rate']
+        mb = r['env'].task.max_blocks
+        out['K1 launches'][mb] = out['K1 launches'].get(mb, 0) \
+            + r['launches']['K1']
+        if fam in FAMILIES:
+            out['K1 carries'].setdefault(mb, (r['env'], r['carry']))
+        del r
+    rates = dict(out['rates'], MoveToCorner=main_rate)
+    mean = sum(rates.values()) / len(rates)
+    print('[multi] env-steps/s at 4096 envs, <Task>-Demo-LoRes4E-v0: '
+          + ', '.join(f'{k} {v:.1f}' for k, v in rates.items()))
+    print(f'[multi] mean env-steps/s over the families, n_tasks='
+          f'{len(rates)}: {mean:.1f} on {smi}')
+    out['mean'] = (mean, len(rates))
+
+    # 138 display prims through K2, then K5 on the state it left
+    r = drive(WIDE_NAME, MAIN_BATCH, MULTI_WARM + MULTI_STEPS)
+    env, carry = r['env'], r['carry']
+    P = render_kernel.kernel_display(carry.state, *env._render_args(),
+                                     env.static_shapes)['nv'].shape[1]
+    out['K1 launches'][10] += r['launches']['K1']
+    carry, busy, h2d = device_busy(env, carry)
+    print(f'[multi] {WIDE_NAME} ({P} display prims): card busy '
+          + ('not measured (no device time in the trace)' if busy is None
+             else f'{busy:.1%} of 3 steps\' host wall time, '
+             f'{h2d:.0f} host-to-device copies a step'))
+    zero_counts()
+    frames = render_kernel.render_views_lo(
+        carry.state, *env._render_args(), views=('allo', 'ego'),
+        static_shapes=env.static_shapes, tiles2d=TILES[0])
+    torch.cuda.synchronize()
+    k5 = read_counts()
+    slot = carry.frames['ego'][carry.t % env.preproc.depth('ego')]
+    if k5['K5'] != 2 or not torch.equal(frames['ego'], slot):
+        raise AssertionError(f'K5 path: launches {k5}, ego frame equal to '
+                             f'the ring slot: '
+                             f'{torch.equal(frames["ego"], slot)}')
+    print(f'[multi] render_views_lo(tiles2d={TILES[0]}) on that state: '
+          f'launches {k5}; ego frame byte-equal to the slot K2 wrote')
+    out['K5 launches'] = k5['K5']
+    out['p138 lo'] = (env, carry, r['launches'])
+    del r
+
+    # and at hi fidelity
+    r = drive(WIDE_NAME, HI_BATCH, MULTI_WARM + 5, fidelity='hi')
+    out['K1 launches'][10] += r['launches']['K1']
+    out['p138 hi'] = (r['env'], r['carry'], r['launches'])
+    return out
+
+
+def time_kernel(k, env, carry, tiles=None):
+    """Kernel `k` ('K1' to 'K5'; K5 on `tiles`) on the state of `carry`, a
+    state of `env`, the ego view at 96² for a render: its wrapper and its
+    plain version timed with CUDA events, the kernel alone (a render with
+    its display list built, K1 as its wrapper), the display-list build
+    alone, and the work of the function for its bound (k1_work,
+    render_work).  Returns a dict of them."""
+    import torch
+    from magical_tpu_torch.core import (physics, physics_kernel, preproc,
+                                        render, render_kernel as rk)
     state = carry.state.clone()
-    B = state.batch
-    args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
-    ss = env.static_shapes
-    spec = env.preproc
+    if k == 'K1':
+        act = torch.randint(0, 18, (state.batch,), device=DEVICE,
+                            dtype=torch.int32, generator=torch.Generator(
+                                device=DEVICE).manual_seed(SEED + 3))
+        ms = cuda_ms(lambda: physics_kernel.control_step(state, act), 10)
+        ops, nbytes = k1_work(state)
+        return dict(ms=ms, alone_ms=ms, disp_ms=None, ops=ops, bytes=nbytes,
+                    plain_ms=cuda_ms(lambda: physics.control_step(state, act),
+                                     1))
+    args, ss, spec = env._render_args(), env.static_shapes, env.preproc
+    fidelity = 'hi' if k == 'K4' else 'lo'
     ring = {'ego': carry.frames['ego'].clone()}
-    ms = cuda_ms(lambda: render_kernel.render_hi_into_slots(
-        state, ring, 7, *args, spec, static_shapes=ss), 10)
-    plain_ms = cuda_ms(lambda: preproc.push_frames_cf(
-        spec, ring, render.render_views(
-            state, *args, views=('ego',), fidelity='hi',
-            static_shapes=ss), 7), 2)
-    disp_ms = cuda_ms(lambda: render_kernel.kernel_display(
-        state, *args, static_shapes=ss), 20)
-    disp = render_kernel.kernel_display(state, *args, static_shapes=ss)
-    slot = ring['ego'][7 % spec.depth('ego')]
-    kern_ms = cuda_ms(lambda: render_kernel._launch(
-        'render_hi_into_slot', disp, state, slot, 'ego', 96), 20)
-    print(f'[times] K4 B={B} (hi path, ego 96², '
-          f'{disp["nv"].shape[1]} prims): kernel {ms:.4f} ms (display list '
-          f'build {disp_ms:.4f} ms; kernel alone, display list built: '
-          f'{kern_ms:.4f} ms), plain {plain_ms:.4f} ms')
-    return ms, plain_ms
+    disp = rk.kernel_display(state, *args, static_shapes=ss)
+
+    def plain():
+        return render.render_views(state, *args, views=('ego',),
+                                   fidelity=fidelity, static_shapes=ss)
+    if k in ('K2', 'K4'):
+        wrapper = rk.render_into_slots if k == 'K2' else \
+            rk.render_hi_into_slots
+        ms = cuda_ms(lambda: wrapper(state, ring, 7, *args, spec,
+                                     static_shapes=ss), 10)
+        plain_ms = cuda_ms(lambda: preproc.push_frames_cf(spec, ring,
+                                                          plain(), 7), 1)
+        entry = 'render_lo_into_slot' if k == 'K2' else 'render_hi_into_slot'
+        out, extra = ring['ego'][7 % spec.depth('ego')], ()
+    else:
+        ms = cuda_ms(lambda: rk.render_views_lo(
+            state, *args, views=('ego',), static_shapes=ss, tiles2d=tiles),
+            10)
+        plain_ms = cuda_ms(plain, 1)
+        entry = 'render_lo_frame' if k == 'K3' else 'render_lo_tiles2d'
+        out = torch.empty((state.batch, 96, 96, 3), dtype=torch.uint8,
+                          device=DEVICE)
+        extra = tiles or ()
+    alone_ms = cuda_ms(lambda: rk._launch(entry, disp, state, out, 'ego', 96,
+                                          *extra), 20)
+    disp_ms = cuda_ms(lambda: rk.kernel_display(state, *args,
+                                                static_shapes=ss), 10)
+    ops, nbytes, per_sample = render_work(disp, state, 'ego', 96, fidelity)
+    return dict(ms=ms, alone_ms=alone_ms, disp_ms=disp_ms, plain_ms=plain_ms,
+                ops=ops, bytes=nbytes, per_sample=per_sample,
+                prims=disp['nv'].shape[1])
+
+
+def phase_times(cases):
+    """time_kernel for each (label, kernel, env, carry, tiles) of `cases`;
+    returns {label: its dict}."""
+    times = {}
+    for label, k, env, carry, tiles in cases:
+        t = times[label] = time_kernel(k, env, carry, tiles)
+        bound_ms, bound_by = bound(t['ops'], t['bytes'])
+        what = (f'{env.env_name}, B={carry.state.batch}' + (
+            '' if k == 'K1' else f', ego 96², {t["prims"]} prims, '
+            f'{t["per_sample"]:.3f} prims composited a '
+            f'{"subpixel" if k == "K4" else "pixel"}'))
+        print(f'[times] {label} ({what}): kernel {t["ms"]:.4f} ms'
+              + ('' if k == 'K1' else f' (alone {t["alone_ms"]:.4f} ms, '
+                 f'display-list build {t["disp_ms"]:.4f} ms)')
+              + f', plain {t["plain_ms"]:.4f} ms, bound {bound_ms:.5f} ms '
+              f'({bound_by})')
+    return times
 
 
 def main():
@@ -628,34 +1047,84 @@ def main():
         print('chip_smoke.py: no CUDA device; the port runs its kernels '
               'only on a GPU', file=sys.stderr)
         return 1
-    smi = phase_device()
-    phase_build()
-    k4_err = phase_kernels()
-    env, carry, launches, rate = phase_main(smi)
+    wall = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wall[phase] = time.perf_counter() - t0
+        print(f'[{phase}] phase wall time {wall[phase]:.1f} s')
+        return out
+
+    smi = timed('device', phase_device)
+    timed('build', phase_build)
+    kerr = timed('kernels', phase_kernels)
+    env, carry, launches, rate = timed('main', phase_main, smi)
     errs = phase_main_shapes(env, carry)
-    times = phase_times(env, carry)
-    del carry
-    hi_env, hi_carry, hi_k1, hi_k4, hi_err, hi_rate = phase_hi(smi)
-    gym_err = phase_gym()
-    times['K4'] = phase_hi_times(hi_env, hi_carry)
+    hi_env, hi_carry, hi_k1, hi_k4, hi_err, hi_rate = timed('hi', phase_hi,
+                                                            smi)
+    gym_err = timed('gym', phase_gym)
+    multi = timed('multi', phase_multi, smi, rate)
+    lo_env, lo_carry, lo_launch = multi['p138 lo']
+    wide_env, wide_carry, hi_launch = multi['p138 hi']
+    cases = [('K1 mb1', 'K1', env, carry, None)]
+    cases += [(f'K1 mb{mb}', 'K1', e, c, None)
+              for mb, (e, c) in sorted(multi['K1 carries'].items())]
+    cases += [('K1 mb10 TestAll', 'K1', lo_env, lo_carry, None),
+              ('K2', 'K2', env, carry, None), ('K3', 'K3', env, carry, None),
+              ('K4', 'K4', hi_env, hi_carry, None),
+              ('K2 p138', 'K2', lo_env, lo_carry, None),
+              ('K3 p138', 'K3', lo_env, lo_carry, None),
+              ('K4 p138', 'K4', wide_env, wide_carry, None)]
+    cases += [(f'K5 {r}x{c}', 'K5', lo_env, lo_carry, (r, c))
+              for r, c in TILES]
+    times = timed('times', phase_times, cases)
     launches['K4'] = hi_k4
-    errs['K4'] = max(k4_err, hi_err, gym_err)
-    src = {'K1': ('cuda', 'magical_tpu_torch/csrc/physics_step.cu',
-                  'magical_tpu/core/physics_pallas.py:1262'),
-           'K2': ('cuda', 'magical_tpu_torch/csrc/render_lo.cu',
-                  'magical_tpu/core/render_pallas.py:918'),
-           'K3': ('cuda', 'magical_tpu_torch/csrc/render_lo.cu',
-                  'magical_tpu/core/render_pallas.py:766'),
-           'K4': ('cuda', 'magical_tpu_torch/csrc/render_hi.cu',
-                  'magical_tpu/core/render_pallas.py:517')}
-    names = {'K1': 'physics_control_step', 'K2': 'render_lo_into_slot',
-             'K3': 'render_lo_frame', 'K4': 'render_hi'}
-    kernels = [{'name': names[k], 'route': src[k][0], 'source': src[k][1],
-                'replaces': src[k][2], 'launches': launches[k],
-                'max_abs_err': errs[k], 'ms': times[k][0],
-                'plain_ms': times[k][1]} for k in ('K1', 'K2', 'K3', 'K4')]
+    errs['K1'] = max(errs['K1'], kerr['K1'][1])
+    for k in ('K2', 'K3'):
+        errs[k] = max(errs[k], kerr[k])
+    errs['K4'] = max(kerr['K4'], hi_err, gym_err)
+
+    rows = [('K1', 'physics_control_step', 'physics_step.cu', 1262,
+             launches['K1'], errs['K1'], times['K1 mb1'])]
+    for mb in sorted(multi['K1 carries']):
+        rows.append(('K1', f'physics_control_step_mb{mb}',
+                     f'physics_step_mb{mb}.cu', 1262,
+                     multi['K1 launches'][mb], kerr['K1'][mb],
+                     times[f'K1 mb{mb}']))
+    t5 = f'K5 {TILES[0][0]}x{TILES[0][1]}'
+    rows += [
+        ('K2', 'render_lo_into_slot', 'render_lo.cu', 918, launches['K2'],
+         errs['K2'], times['K2']),
+        ('K2', 'render_lo_into_slot_p138', 'render_lo.cu', 918,
+         lo_launch['K2'], kerr['K2'], times['K2 p138']),
+        ('K3', 'render_lo_frame', 'render_lo.cu', 766, launches['K3'],
+         errs['K3'], times['K3']),
+        ('K3', 'render_lo_frame_p138', 'render_lo.cu', 766, lo_launch['K3'],
+         kerr['K3'], times['K3 p138']),
+        ('K4', 'render_hi', 'render_hi.cu', 517, launches['K4'], errs['K4'],
+         times['K4']),
+        ('K4', 'render_hi_p138', 'render_hi.cu', 517,
+         hi_launch['K4 frame'] + hi_launch['K4 slot'], kerr['K4'],
+         times['K4 p138']),
+        ('K5', 'render_lo_tiles2d', 'render_lo.cu', 692,
+         multi['K5 launches'], kerr['K5'], times[t5])]
+    kernels = []
+    for k, name, src, line, n, err, t in rows:
+        bound_ms, bound_by = bound(t['ops'], t['bytes'])
+        pallas = 'physics_pallas.py' if k == 'K1' else 'render_pallas.py'
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': f'magical_tpu_torch/csrc/{src}',
+            'replaces': f'magical_tpu/core/{pallas}:{line}',
+            'launches': n, 'max_abs_err': err, 'ms': t['ms'],
+            'plain_ms': t['plain_ms'], 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None})
     print(f'[result] env-steps/s {rate:.1f} (lo main), {hi_rate:.1f} (hi, '
-          f'K1 {hi_k1} and K4 {hi_k4} launches) on {smi}')
+          f'K1 {hi_k1} and K4 {hi_k4} launches); mean over the families '
+          f'{multi["mean"][0]:.1f} (n_tasks={multi["mean"][1]}); on {smi}')
+    print('[result] phase wall times: '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in wall.items()))
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

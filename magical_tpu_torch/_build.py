@@ -40,10 +40,13 @@ _I = ctypes.c_int
 # C entry points and their argument types.
 SIGNATURES = {
     'physics_table_layout': [_P],
-    'physics_control_step': [_P] * 20 + [_I] * 4 + [_P],
+    **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P]
+       for mb in (1, 3, 4, 7, 8, 10)},
     'render_lo_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
     + [_P],
     'render_lo_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
+    'render_lo_tiles2d': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
+    + [_I] * 2 + [_P],
     'render_hi_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
     + [_P],
     'render_hi_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
@@ -81,7 +84,9 @@ def _digest(cu: pathlib.Path) -> str:
 def build(verbose: bool = False) -> list:
     """Compile every csrc/*.cu whose library for the current sources does
     not exist yet, one nvcc process per source, all started together;
-    returns the libraries' paths."""
+    returns the libraries' paths.  Each command, its seconds and its
+    output (with `verbose`, ptxas's report of every kernel's registers,
+    stack frame and spills) go to build.log in BUILD_DIR."""
     global BUILD_SECONDS
     outs = [(cu, BUILD_DIR / f'lib{cu.stem}_{_digest(cu)}.so')
             for cu in sorted(CSRC_DIR.glob('*.cu'))]
@@ -100,13 +105,22 @@ def build(verbose: bool = False) -> list:
             if verbose:
                 cmd += ['-Xptxas', '-v']
             cmd += ['-o', tmp, str(cu)]
-            jobs.append((cmd, tmp, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
+            # nvcc's output goes to a file, so that a long ptxas report
+            # cannot fill a pipe while the others are polled
+            log = tempfile.TemporaryFile('w+', dir=BUILD_DIR)
+            jobs.append((cmd, tmp, out, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+        seconds = {}
+        while len(seconds) < len(jobs):
+            for cmd, *_, proc in jobs:
+                if cmd[-1] not in seconds and proc.poll() is not None:
+                    seconds[cmd[-1]] = time.perf_counter() - t0
+            time.sleep(0.05)
         results = []
-        for cmd, tmp, out, proc in jobs:
-            so, se = proc.communicate()
-            results.append((cmd, tmp, out, proc.returncode, so, se))
+        for cmd, tmp, out, log, proc in jobs:
+            log.seek(0)
+            results.append((cmd, tmp, out, proc.returncode, '', log.read()))
+            log.close()
     finally:
         for *_, proc in jobs:
             if proc.poll() is None:
@@ -114,15 +128,14 @@ def build(verbose: bool = False) -> list:
                 proc.wait()
     BUILD_SECONDS = time.perf_counter() - t0
     (BUILD_DIR / 'build.log').write_text(''.join(
-        ' '.join(cmd) + '\n' + so + se for cmd, _, _, _, so, se in results))
+        ' '.join(cmd) + f'\n{seconds[cmd[-1]]:.3f} s\n' + so + se
+        for cmd, _, _, _, so, se in results))
     failed = []
     for cmd, tmp, out, rc, so, se in results:
         if rc != 0:
             os.unlink(tmp)
             failed.append(f'{cmd[-1]}: nvcc failed ({rc}):\n{se[-4000:]}')
             continue
-        if verbose:
-            print(se, end='')
         os.replace(tmp, out)
     if failed:
         raise RuntimeError('\n'.join(failed))

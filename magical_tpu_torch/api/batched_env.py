@@ -17,9 +17,10 @@ On the CPU the same calls run the kernels' plain PyTorch versions.  `done`
 fires exactly at the episode's max step and ``info['eval_score']``
 carries the end-of-episode score, zero elsewhere.
 
-The port serves every variant and preprocessor of MoveToCorner and
-MoveToRegion at both fidelities; the other task families raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+The port serves every variant and preprocessor of all eight task families
+at both fidelities.  The render kernels' 2-D tiled variant (K5,
+``render_views_lo(tiles2d=...)``) is reached through its argument, as in
+the JAX package; the step uses K2/K3 or K4.
 """
 
 from __future__ import annotations
@@ -39,8 +40,6 @@ from magical_tpu_torch.core import physics_kernel, preproc, render_kernel
 from magical_tpu_torch.core.state import EnvState
 from magical_tpu_torch.tasks import ALL_TASKS
 from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
-
-_TODO = 'ROADMAP.md, "Modules to port", item {}'
 
 
 @dataclasses.dataclass
@@ -63,10 +62,6 @@ class BatchedEnv:
         name = EnvName(env_name)
         self.env_name = env_name
         self.device = torch.device(device)
-        if name.task not in ALL_TASKS:
-            raise NotImplementedError(
-                f'{env_name}: task {name.task} is not ported yet '
-                f'({_TODO.format(2)})')
         if fidelity not in ('lo', 'hi'):
             raise ValueError(f'fidelity must be lo or hi, not {fidelity!r}')
         self.task = ALL_TASKS[name.task]

@@ -3,8 +3,6 @@
 The PyTorch counterpart of ``magical_tpu/api/registry.py``, mirroring
 register_envs (benchmarks/__init__.py:394-1049): 60 base IDs (8 tasks x
 their variants), x5 preprocessed IDs each, +6 MoveToCorner DebugReward IDs.
-Every ID is registered, ported or not; making one of a task family that is
-not ported yet raises NotImplementedError naming its ROADMAP.md item.
 """
 
 import collections

@@ -28,8 +28,9 @@ from magical_tpu_torch.core import physics
 from magical_tpu_torch.core.state import (EnvState, max_contacts,
                                           n_joint_acc)
 
-# Block counts the kernel is instantiated for (csrc/physics_step.cu).
-SUPPORTED_MAX_BLOCKS = (1,)
+# Block counts the kernel is instantiated for (csrc/physics_step.cu and
+# csrc/physics_step_mb<MB>.cu): those of the eight task families.
+SUPPORTED_MAX_BLOCKS = (1, 3, 4, 7, 8, 10)
 # Offsets the C side reports through physics_table_layout.
 _N_SCALARS = 7
 
@@ -109,10 +110,8 @@ def check_inputs(state: EnvState, action: torch.Tensor):
     CUDA device, of the expected dtype and shape, contiguous."""
     mb = state.max_blocks
     if mb not in SUPPORTED_MAX_BLOCKS:
-        raise NotImplementedError(
-            f'physics kernel is built for max_blocks in '
-            f'{SUPPORTED_MAX_BLOCKS}, not {mb} (ROADMAP.md, "Modules to '
-            f'port", item 2)')
+        raise ValueError(f'physics kernel is built for max_blocks in '
+                         f'{SUPPORTED_MAX_BLOCKS}, not {mb}')
     B = state.batch
     dev = state.device
     tensors = [(name, getattr(state, name), dt, shp)
@@ -156,9 +155,10 @@ def control_step(state: EnvState, action: torch.Tensor) -> EnvState:
     check_inputs(state, action)
     ftab, itab = _tables(state.max_blocks, state.device)
     stream = torch.cuda.current_stream(state.device).cuda_stream
-    rc = _build.library().physics_control_step(
+    entry = f'physics_control_step_mb{state.max_blocks}'
+    rc = getattr(_build.library(), entry)(
         *kernel_args(state, action, ftab, itab), stream)
-    _build.check(rc, 'physics_control_step')
+    _build.check(rc, entry)
     control_step.launches += 1
     return state
 

@@ -1,7 +1,7 @@
 """Frames on the GPU: the wrappers of ``csrc/render_lo.cu`` and
 ``csrc/render_hi.cu``.
 
-Two CUDA kernels, each with two entry points:
+The CUDA kernels and their entry points:
 
   * :func:`render_into_slots` — K2, the lo render of every step, written
     straight into slot ``t mod depth`` of each view's frame ring; it
@@ -13,7 +13,12 @@ Two CUDA kernels, each with two entry points:
   * :func:`render_views_hi` and :func:`render_hi_into_slots` — K4, hi
     fidelity, fresh frames and ring slots; they replace the hi branch of
     ``render_batch_pallas``, ``_render_kernel_hi`` (:517, ``pl.pallas_call``
-    :766).
+    :766);
+  * :func:`render_lo_tiles2d` — K5, fresh lo frames over 2-D pixel tiles
+    that cull the display list by each prim's screen box, reached through
+    ``render_views_lo(tiles2d=(row_tile, col_tile))``; it replaces
+    ``render_batch_pallas(tiles2d=...)``, ``_render_kernel_2d`` (:474,
+    ``pl.pallas_call`` :692).  Its cull is exact, so its frames equal K3's.
 
 Their plain version is ``core/render.py``'s ``render_views`` at the same
 fidelity: ``render_frame(aa=True)`` + ``to_uint8`` at lo, and hard
@@ -30,11 +35,11 @@ import torch
 
 from magical_tpu_torch import _build
 from magical_tpu_torch import constants as C
-from magical_tpu_torch.core import preproc, render
+from magical_tpu_torch.core import collision, preproc, render
 from magical_tpu_torch.core.state import EnvState
 
-MAX_PRIMS = 64          # MAX_PRIMS of csrc/render_lo.cu and render_hi.cu
-MAX_BATCH = 65535       # grid.y
+MAX_PRIMS = 240         # MAX_PRIMS of csrc/render_lo.cuh
+MAX_BATCH = 65535       # grid.y of K2/K3/K4
 
 
 def camera_args(view: str, res: int):
@@ -77,6 +82,63 @@ def kernel_display(state: EnvState, max_blocks: int, max_goals: int,
                         device=dev))
 
 
+def prim_screen_bboxes(disp, state: EnvState, view: str, res: int):
+    """The plain version of K5's cull (``prim_screen_bbox``,
+    csrc/render_lo.cuh): each prim's screen box, (B, P, 4) as (u_min,
+    u_max, w_min, w_max) in pixel-centre units (pixel (row, col) at u =
+    col + 0.5, w = row + 0.5), outside which its alpha is exactly 0, and
+    (B, P) whether it could be bounded.  `disp` is :func:`kernel_display`'s
+    list."""
+    ego, scale, half, npx, npy, lw_scale = (
+        torch.tensor(x, dtype=torch.float32)
+        for x in camera_args(view, res)[:6])
+    dev = state.device
+    scale, half, npx, npy = (x.to(dev) for x in (scale, half, npx, npy))
+    verts, nv, rad = disp['verts'], disp['nv'], disp['radius']
+    kind, lw = disp['kind'], disp['lw']
+    margin = 1.0 + torch.where(kind != render.KIND_FILL,
+                               torch.clamp(lw * lw_scale.to(dev), min=1.0)
+                               * 0.5, 0.0)
+    r = rad + margin / scale                                   # (B, P)
+    if bool(ego):
+        c = torch.cos(state.angle[:, 0])[:, None, None]
+        s = torch.sin(state.angle[:, 0])[:, None, None]
+        rx = state.pos[:, 0, 0][:, None, None]
+        ry = state.pos[:, 0, 1][:, None, None]
+
+    def screen(x, y):                        # world (B, P, K) -> screen
+        if not bool(ego):
+            return (x + half) * scale, (half - y) * scale
+        dx, dy = x - rx, y - ry
+        spx, spy = c * dx + s * dy, -s * dx + c * dy
+        return (spx + npx) * scale, float(res) - (spy + npy) * scale
+
+    # polygons: the vertices of the polygon with every face pushed out by r
+    _, _, n, valid = collision._poly_edges(verts, nv)
+    idx = torch.arange(render.NV, device=dev)
+    h = torch.remainder(idx - 1, nv[..., None]).long()        # face before
+    nh = torch.gather(n, 2, h[..., None].expand(n.shape))
+    vh = torch.gather(valid, 2, h)
+    den = 1.0 + (nh[..., 0] * n[..., 0] + nh[..., 1] * n[..., 1])
+    k = r[..., None] / den
+    u, w = screen(verts[..., 0] + k * (nh[..., 0] + n[..., 0]),
+                  verts[..., 1] + k * (nh[..., 1] + n[..., 1]))
+    use = idx < nv[..., None]
+    big = torch.tensor(1e30, device=dev)
+    bb = torch.stack([torch.where(use, u, big).amin(-1),
+                      torch.where(use, u, -big).amax(-1),
+                      torch.where(use, w, big).amin(-1),
+                      torch.where(use, w, -big).amax(-1)], -1)
+    bounded = (~use | (vh & valid & (den >= 1e-3))).all(-1)
+    # circles: the centre +- r
+    cu, cw = screen(verts[..., :1, 0], verts[..., :1, 1])
+    rp = (r * scale)[..., None]
+    circ = torch.cat([cu - rp, cu + rp, cw - rp, cw + rp], -1)
+    is_circ = nv == 1
+    return (torch.where(is_circ[..., None], circ, bb),
+            is_circ | bounded)
+
+
 def _check(disp, state: EnvState, out: torch.Tensor, res: int):
     B = state.batch
     P = disp['nv'].shape[1]
@@ -113,7 +175,7 @@ _GRID = {'render_lo_frame': 1, 'render_lo_into_slot': 1,
 
 
 def _launch(entry: str, disp, state: EnvState, out: torch.Tensor,
-            view: str, res: int):
+            view: str, res: int, *extra):
     _check(disp, state, out, res)
     ptrs = [disp[k].data_ptr() for k in
             ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
@@ -121,15 +183,16 @@ def _launch(entry: str, disp, state: EnvState, out: torch.Tensor,
     ints = [state.batch, disp['nv'].shape[1], res, state.n_bodies]
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = getattr(_build.library(), entry)(
-        *ptrs, *ints, *camera_args(view, _GRID[entry] * res), stream)
+        *ptrs, *ints, *camera_args(view, _GRID.get(entry, 1) * res), *extra,
+        stream)
     _build.check(rc, entry)
 
 
 def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
-           res: int, views, static_shapes):
-    """Fresh frames through kernel entry point `entry`, counted on
-    `wrapper`; on a CPU state, the plain render at `fidelity`.  `scene`
-    is (max_blocks, max_goals, robot_first)."""
+           res: int, views, static_shapes, *extra):
+    """Fresh frames through kernel entry point `entry` (given `extra`
+    arguments), counted on `wrapper`; on a CPU state, the plain render at
+    `fidelity`.  `scene` is (max_blocks, max_goals, robot_first)."""
     if state.device.type == 'cpu':
         return render.render_views(state, *scene, res=res, views=views,
                                    fidelity=fidelity,
@@ -139,7 +202,7 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
     for view in views:
         frame = torch.empty((state.batch, res, res, 3), dtype=torch.uint8,
                             device=state.device)
-        _launch(entry, disp, state, frame, view, res)
+        _launch(entry, disp, state, frame, view, res, *extra)
         wrapper.launches += 1
         out[view] = frame
     return out
@@ -167,17 +230,43 @@ def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
 
 def render_views_lo(state: EnvState, max_blocks: int, max_goals: int,
                     robot_first: bool, res: int = 96,
-                    views=('allo', 'ego'), static_shapes=None):
-    """Fresh lo-fidelity frames {view: (B, res, res, 3) uint8} (K3).
+                    views=('allo', 'ego'), static_shapes=None,
+                    tiles2d=None):
+    """Fresh lo-fidelity frames {view: (B, res, res, 3) uint8}: K3, or K5
+    (:func:`render_lo_tiles2d`) where `tiles2d` = (row_tile, col_tile)
+    names the pixel tiles, each of which must divide `res`.
 
     On a CUDA state it launches the kernel once per view; on a CPU state
     it is the plain ``render.render_views(..., fidelity='lo')``."""
-    return _fresh(render_views_lo, 'render_lo_frame', 'lo', state,
-                  (max_blocks, max_goals, robot_first), res, views,
-                  static_shapes)
+    scene = (max_blocks, max_goals, robot_first)
+    if tiles2d is not None:
+        return render_lo_tiles2d(state, *scene, tiles2d, res=res, views=views,
+                                 static_shapes=static_shapes)
+    return _fresh(render_views_lo, 'render_lo_frame', 'lo', state, scene,
+                  res, views, static_shapes)
 
 
 render_views_lo.launches = 0
+
+
+def render_lo_tiles2d(state: EnvState, max_blocks: int, max_goals: int,
+                      robot_first: bool, tiles2d, res: int = 96,
+                      views=('allo', 'ego'), static_shapes=None):
+    """K5: fresh lo frames {view: (B, res, res, 3) uint8} composited over
+    (row_tile, col_tile) pixel tiles, each tile over the prims whose screen
+    box meets it (:func:`prim_screen_bboxes`).  Equal to
+    :func:`render_views_lo`'s frames; on a CPU state it is the plain lo
+    render.  Raises unless both tile sides divide `res`."""
+    row_tile, col_tile = (int(x) for x in tiles2d)
+    if row_tile <= 0 or col_tile <= 0 or res % row_tile or res % col_tile:
+        raise ValueError(f'tiles2d {tuple(tiles2d)} must divide res {res} '
+                         f'on both axes')
+    return _fresh(render_lo_tiles2d, 'render_lo_tiles2d', 'lo', state,
+                  (max_blocks, max_goals, robot_first), res, views,
+                  static_shapes, row_tile, col_tile)
+
+
+render_lo_tiles2d.launches = 0
 
 
 def render_into_slots(state: EnvState, rings: dict, t: int, max_blocks: int,

@@ -15,31 +15,31 @@
 // and every env is independent; the state is a few hundred bytes per env,
 // so device memory traffic is negligible.  The design: one thread per env,
 // all of its bodies, contacts and accumulators in registers and local
-// memory (L1-resident), no shared memory, no synchronisation.  At 4096
-// envs that is 32 blocks of 128 threads on 132 SMs, so most of the card
-// idles; whether a warp per env, with contacts spread across lanes, pays
-// is left to a later change.
+// memory, no shared memory, no synchronisation.  At 4096 envs that is 32
+// blocks of 128 threads on 132 SMs, so most of the card idles; whether a
+// warp per env, with contacts spread across lanes, pays is left to a later
+// change.
+//
+// The kernel is instantiated for every block count of the task families:
+// MB = 1 here, MB = 3, 4, 7, 8 and 10 in physics_step_mb<MB>.cu, one
+// source each so that nvcc builds them side by side; the launch and the C
+// entry point are in physics_entry.cuh.  The per-env state grows with MB:
+// at MB = 10 a thread holds 65 sub-shape slots and 24 arrays of 192
+// contacts in a 30 KB stack frame (7 KB at MB = 1), with 255 registers and
+// spills from MB = 3 on (ptxas -v, which the build's verbose mode writes to
+// build.log), and walks 1920 sub-shape pairs per substep against 30.  On
+// the H100 at 4096 envs that costs ~13 ms a step at MB = 10 on Demo
+// states and ~90 ms on ClusterColour-TestAll states, whose many contacts
+// and mixed shapes lengthen each thread's loops (PERF.md): still one
+// thread per env, latency-bound, far from the card's limits.
 //
 // The kernel updates the state tensors in place.  The per-env arithmetic
 // lives in __host__ __device__ functions that follow core/physics.py
 // operation for operation, so that the two agree to rounding.
 
-#include <cuda_runtime.h>
-
-#include "physics_step.cuh"
+#include "physics_entry.cuh"
 
 using namespace magical;
-
-namespace {
-
-template <int MB>
-__global__ void control_step_kernel(Args a) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;                  // ragged edge
-  control_step_env<MB>(a, b);
-}
-
-}  // namespace
 
 // Offsets of the table layout, for the Python side to check against its
 // own: {FT_CAND_FRICTION, N_SCALARS, IT_SLOT_BODY}.
@@ -50,48 +50,6 @@ extern "C" int physics_table_layout(int* out) {
   return 0;
 }
 
-extern "C" int physics_control_step(
-    void* pos, void* angle, void* vel, void* omega, void* v_bias,
-    void* w_bias, void* target_speed, void* rel_turn_angle,
-    void* target_finger_angle, const void* block_shape,
-    const void* block_active, const void* phys, void* con_id, void* con_jn,
-    void* con_jt, void* joint_acc, void* t, const void* action,
-    const void* ftab, const void* itab, int B, int mb, int phys_steps,
-    int iterations, void* stream) {
-  Args a;
-  a.pos = static_cast<float*>(pos);
-  a.angle = static_cast<float*>(angle);
-  a.vel = static_cast<float*>(vel);
-  a.omega = static_cast<float*>(omega);
-  a.v_bias = static_cast<float*>(v_bias);
-  a.w_bias = static_cast<float*>(w_bias);
-  a.target_speed = static_cast<float*>(target_speed);
-  a.rel_turn_angle = static_cast<float*>(rel_turn_angle);
-  a.target_finger_angle = static_cast<float*>(target_finger_angle);
-  a.block_shape = static_cast<const int*>(block_shape);
-  a.block_active = static_cast<const unsigned char*>(block_active);
-  a.phys = static_cast<const float*>(phys);
-  a.con_id = static_cast<int*>(con_id);
-  a.con_jn = static_cast<float*>(con_jn);
-  a.con_jt = static_cast<float*>(con_jt);
-  a.joint_acc = static_cast<float*>(joint_acc);
-  a.t = static_cast<int*>(t);
-  a.action = static_cast<const int*>(action);
-  a.tab.f = static_cast<const float*>(ftab);
-  a.tab.i = static_cast<const int*>(itab);
-  a.B = B;
-  a.phys_steps = phys_steps;
-  a.iterations = iterations;
-  if (B <= 0) return 0;
-  const int threads = 128;
-  dim3 grid((B + threads - 1) / threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mb) {
-    case 1:
-      control_step_kernel<1><<<grid, threads, 0, s>>>(a);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+// MoveToCorner and MoveToRegion; the other block counts have a source each
+// (physics_step_mb<MB>.cu).
+PHYSICS_CONTROL_STEP(1)

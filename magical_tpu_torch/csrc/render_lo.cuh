@@ -16,6 +16,12 @@ constexpr int KIND_FILL = 0;
 constexpr int KIND_LINE = 1;
 constexpr int KIND_LINE_STIPPLE = 2;
 
+// The most display prims an env's list may hold: the kernels stage the
+// list in shared memory, sizeof(Prim) = 200 bytes a prim, and stay within
+// the 48 KB a block may take without opting in to more (ClusterColour's
+// Test variants draw 138).
+constexpr int MAX_PRIMS = 240;
+
 // One env's display list, staged (in shared memory on the device).
 struct Prim {
   float v[NV][2];     // world verts
@@ -29,6 +35,9 @@ struct Prim {
   float lw;
   bool active;
 };
+static_assert(MAX_PRIMS * sizeof(Prim) <= 48 * 1024,
+              "the staged display list must fit 48 KB of shared memory");
+
 
 struct Camera {
   int res;
@@ -41,6 +50,24 @@ struct Camera {
   float lw_scale;     // res / 384
   float two_scale;    // 2 * scale
   float bg[3];        // background colour
+};
+
+// What a render kernel reads: the batched display list
+// (core/render_kernel.py kernel_display), the robot pose for the ego
+// camera, and where the uint8 frame goes.
+struct RenderArgs {
+  const float* verts;           // (B, P, NV, 2)
+  const int* nv;                // (B, P)
+  const float* radius;          // (B, P)
+  const float* color;           // (B, P, 3)
+  const unsigned char* active;  // (B, P) bool
+  const int* kind;              // (P,)
+  const float* lw;              // (P,)
+  const float* pos;             // (B, NB, 2) robot pose source
+  const float* angle;           // (B, NB)
+  unsigned char* out;           // (B, res, res, 3)
+  int B, P, res, nb;
+  Camera cam;
 };
 
 // core/render.py _poly_edges + the per-face offsets of _prim_sdf.
@@ -56,6 +83,65 @@ __host__ __device__ inline void prim_faces(Prim& p) {
     p.valid[i] = (i < p.nv) && (elen > 1e-9f);
     p.offs[i] = p.v[i][0] * p.n[i][0] + p.v[i][1] * p.n[i][1];
   }
+}
+
+// RenderArgs from the C entry points' arguments (render_lo.cu,
+// render_hi.cu): `cam_res` is the camera grid's resolution (res, or 4 res
+// at hi fidelity), the floats describe that grid.
+inline RenderArgs make_render_args(
+    const void* verts, const void* nv, const void* radius, const void* color,
+    const void* active, const void* kind, const void* lw, const void* pos,
+    const void* angle, void* out, int B, int P, int res, int nb, int cam_res,
+    int ego, float scale, float half, float npx, float npy, float lw_scale,
+    float two_scale, float bg0, float bg1, float bg2) {
+  RenderArgs a;
+  a.verts = static_cast<const float*>(verts);
+  a.nv = static_cast<const int*>(nv);
+  a.radius = static_cast<const float*>(radius);
+  a.color = static_cast<const float*>(color);
+  a.active = static_cast<const unsigned char*>(active);
+  a.kind = static_cast<const int*>(kind);
+  a.lw = static_cast<const float*>(lw);
+  a.pos = static_cast<const float*>(pos);
+  a.angle = static_cast<const float*>(angle);
+  a.out = static_cast<unsigned char*>(out);
+  a.B = B;
+  a.P = P;
+  a.res = res;
+  a.nb = nb;
+  a.cam = Camera{cam_res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f,
+                 0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
+  return a;
+}
+
+// Prim i of env b, staged with its faces.
+__host__ __device__ inline void load_prim(const RenderArgs& a, int b, int i,
+                                          Prim& p) {
+  const int q = b * a.P + i;
+  for (int v = 0; v < NV; ++v) {
+    p.v[v][0] = a.verts[(q * NV + v) * 2];
+    p.v[v][1] = a.verts[(q * NV + v) * 2 + 1];
+  }
+  p.nv = a.nv[q];
+  p.rad = a.radius[q];
+  for (int c = 0; c < 3; ++c) p.col[c] = a.color[q * 3 + c];
+  p.active = a.active[q] != 0;
+  p.kind = a.kind[i];
+  p.lw = a.lw[i];
+  prim_faces(p);
+}
+
+// The camera of env b: the ego view follows the robot's pose.
+__host__ __device__ inline Camera env_camera(const RenderArgs& a, int b) {
+  Camera cam = a.cam;
+  if (cam.ego) {
+    const float ang = a.angle[b * a.nb];
+    cam.c = cosf(ang);
+    cam.s = sinf(ang);
+    cam.rx = a.pos[b * a.nb * 2];
+    cam.ry = a.pos[b * a.nb * 2 + 1];
+  }
+  return cam;
 }
 
 // World coordinates of the centre of pixel (row, col).
@@ -150,6 +236,90 @@ __host__ __device__ inline void shade_levels(const Prim* prims, int n_prims,
   }
   for (int c = 0; c < 3; ++c)
     level[c] = floorf(clamp01(img[c]) * 255.0f + 0.5f);
+}
+
+// ---------------------------------------------------------------------------
+// Culling by screen box (the 2-D tiled lo render, K5)
+// ---------------------------------------------------------------------------
+
+// Screen position of world point (x, y) in pixel-centre units: pixel
+// (row, col) has its centre at u = col + 0.5, w = row + 0.5.  The inverse
+// of pixel_world.
+__host__ __device__ inline void world_screen(const Camera& cam, float x,
+                                             float y, float* u, float* w) {
+  if (!cam.ego) {
+    *u = (x + cam.half) * cam.scale;
+    *w = (cam.half - y) * cam.scale;
+    return;
+  }
+  float dx = x - cam.rx, dy = y - cam.ry;
+  float spx = cam.c * dx + cam.s * dy, spy = -cam.s * dx + cam.c * dy;
+  *u = (spx + cam.npx) * cam.scale;
+  *w = (float)cam.res - (spy + cam.npy) * cam.scale;
+}
+
+// The screen box {u_min, u_max, w_min, w_max} outside which prim p has
+// alpha exactly 0, so that a pixel of it composites as if the prim were
+// absent.  Returns false where it cannot bound the prim (a degenerate
+// face); such a prim is never culled.
+//
+// A pixel gets alpha > 0 only where the SDF is below R = 0.5 px (a fill)
+// or the line's half width + 0.5 px (an outline).  Taken with the margin
+// of render_batch_pallas (1 px + the line's half width), R also covers
+// rounding by 0.5 px.  A circle's SDF is its centre distance, so its box
+// is the centre +- (radius + R).  A polygon's SDF is the largest of its
+// face distances, which near a sharp vertex stays under R well beyond
+// radius + R on the axis (a star tip of 45 degrees keeps alpha up to 0.12
+// at 1 px past that): its box is that of the polygon with every face
+// pushed out by radius + R, whose vertex between faces of normals n0 and
+// n1 is v + (radius + R) (n0 + n1) / (1 + n0 . n1).
+__host__ __device__ inline bool prim_screen_bbox(const Prim& p,
+                                                 const Camera& cam,
+                                                 float* bb) {
+  float margin = 1.0f;
+  if (p.kind != KIND_FILL) margin += fmaxf(p.lw * cam.lw_scale, 1.0f) * 0.5f;
+  const float r = p.rad + margin / cam.scale;          // world units
+  if (p.nv == 1) {
+    float u, w;
+    world_screen(cam, p.v[0][0], p.v[0][1], &u, &w);
+    const float rp = r * cam.scale;
+    bb[0] = u - rp;
+    bb[1] = u + rp;
+    bb[2] = w - rp;
+    bb[3] = w + rp;
+    return true;
+  }
+  bb[0] = bb[2] = 1e30f;
+  bb[1] = bb[3] = -1e30f;
+  for (int i = 0; i < p.nv; ++i) {
+    const int h = i == 0 ? p.nv - 1 : i - 1;         // the face before
+    if (!p.valid[h] || !p.valid[i]) return false;
+    const float den =
+        1.0f + (p.n[h][0] * p.n[i][0] + p.n[h][1] * p.n[i][1]);
+    if (den < 1e-3f) return false;                   // a needle vertex
+    const float k = r / den;
+    float u, w;
+    world_screen(cam, p.v[i][0] + k * (p.n[h][0] + p.n[i][0]),
+                 p.v[i][1] + k * (p.n[h][1] + p.n[i][1]), &u, &w);
+    bb[0] = fminf(bb[0], u);
+    bb[1] = fmaxf(bb[1], u);
+    bb[2] = fminf(bb[2], w);
+    bb[3] = fmaxf(bb[3], w);
+  }
+  return true;
+}
+
+// Whether prim p can colour a pixel of the tile of rows [r0, r0 + rows)
+// and columns [c0, c0 + cols): active, and its screen box meets the
+// tile's pixel centres on both axes.
+__host__ __device__ inline bool prim_meets_tile(const Prim& p,
+                                                const Camera& cam, int r0,
+                                                int rows, int c0, int cols) {
+  if (!p.active) return false;
+  float bb[4];
+  if (!prim_screen_bbox(p, cam, bb)) return true;
+  return !(bb[1] < (float)c0 + 0.5f || bb[0] > (float)(c0 + cols) - 0.5f ||
+           bb[3] < (float)r0 + 0.5f || bb[2] > (float)(r0 + rows) - 0.5f);
 }
 
 // Lo fidelity: antialiased coverage at the output pixel itself.

@@ -5,6 +5,11 @@ The PyTorch counterpart of ``magical_tpu/tasks/base.py``.  A task is
 ``reset(generator, batch, flags, device) -> EnvState`` and
 ``score(state) -> (B,) f32``; :class:`Stack` collects the geometry of the
 entities a reset has placed, per env, as obstacles for the next placement.
+
+The resets of the multi-block families take their random numbers through
+:class:`Draws`, one named draw at a time, so that :class:`GivenDraws` can
+hand them the numbers another sampler drew (the tests feed the JAX
+package's) and the whole reset can be compared value for value.
 """
 
 from __future__ import annotations
@@ -58,6 +63,9 @@ class TaskDef:
     # under the default count (see static_block_shapes).
     default_shapes: Optional[Tuple[int, ...]] = None
     default_active: Optional[Tuple[bool, ...]] = None
+    # (draws, flags) -> EnvState: the reset on given Draws, where the
+    # family takes its random numbers through them
+    reset_from_draws: Optional[Callable] = None
 
     def flags_for(self, variant: str) -> Flags:
         return self.variant_flags[variant]
@@ -92,6 +100,110 @@ class TaskDef:
 
 FULL_VARIANTS = ('Demo', 'TestJitter', 'TestColour', 'TestShape',
                  'TestLayout', 'TestCountPlus', 'TestDynamics', 'TestAll')
+
+FULL_VARIANT_FLAGS = {
+    'Demo': Flags(),
+    'TestJitter': Flags(layout_minor=True),
+    'TestColour': Flags(colour=True),
+    'TestShape': Flags(shape=True),
+    'TestLayout': Flags(layout_full=True),
+    'TestCountPlus': Flags(colour=True, shape=True, count=True,
+                           layout_full=True),
+    'TestDynamics': Flags(dynamics=True),
+    'TestAll': Flags(colour=True, shape=True, count=True, layout_full=True,
+                     dynamics=True),
+}
+
+
+class Draws:
+    """The random numbers of one batched reset, drawn from a CPU or CUDA
+    `generator` in call order.  Every draw is per env, (B, *shape), and
+    named; the names are what :class:`GivenDraws` looks up."""
+
+    def __init__(self, generator: Optional[torch.Generator], batch: int,
+                 device):
+        self.generator = generator
+        self.batch = batch
+        self.device = torch.device(device)
+
+    def uniform(self, name: str, shape=()):
+        """Uniforms in [0, 1), f32."""
+        g = self.generator
+        return torch.rand((self.batch,) + tuple(shape), generator=g,
+                          device=g.device).to(self.device)
+
+    def randint(self, name: str, low: int, high, shape=()):
+        """Integers in [low, high), i32; `high` is an int or a per-env
+        (B,) tensor."""
+        if isinstance(high, torch.Tensor):
+            u = self.uniform(name, shape)
+            span = (high - low).to(torch.float32).reshape(
+                (-1,) + (1,) * len(shape))
+            return (low + torch.floor(u * span)).to(torch.int32)
+        g = self.generator
+        return torch.randint(low, high, (self.batch,) + tuple(shape),
+                             generator=g, device=g.device).to(
+            self.device, torch.int32)
+
+    def choice(self, name: str, values, shape=()):
+        """rng.choice over a static tuple of integer codes: the draw is the
+        index into `values`."""
+        idx = self.randint(name, 0, len(values), shape)
+        return torch.as_tensor(np.asarray(values, np.int32),
+                               device=self.device)[idx.long()]
+
+
+class GivenDraws(Draws):
+    """Draws handed in: `values` maps each draw's name to its (B, *shape)
+    array, the uniforms of a `uniform` and the integers of a `randint` (the
+    index of a `choice`)."""
+
+    def __init__(self, values: dict, batch: int, device):
+        super().__init__(None, batch, device)
+        self.values = values
+
+    def _given(self, name, dtype, shape):
+        x = torch.as_tensor(np.array(self.values[name]), dtype=dtype,
+                            device=self.device)
+        want = (self.batch,) + tuple(shape)
+        if tuple(x.shape) != want:
+            raise ValueError(f'draw {name!r} has shape {tuple(x.shape)}, '
+                             f'the reset takes {want}')
+        return x
+
+    def uniform(self, name, shape=()):
+        return self._given(name, torch.float32, shape)
+
+    def randint(self, name, low, high, shape=()):
+        return self._given(name, torch.int32, shape)
+
+
+def per_env(x, batch: int, device, dtype=torch.float32):
+    """A static table, the same for every env: (B, *x.shape)."""
+    t = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return t.expand((batch,) + tuple(t.shape)).contiguous()
+
+
+def phys_from_draws(d: Draws, flags: Flags):
+    """PhysicsVariables.defaults() / .sample(), per env: (B, 5)."""
+    if not flags.dynamics:
+        return f32(C.PHYS_VAR_DEFAULTS, d.device).repeat(d.batch, 1)
+    lo = f32(C.PHYS_VAR_LO, d.device)
+    hi = f32(C.PHYS_VAR_HI, d.device)
+    return lo + d.uniform('phys', (C.N_PHYS_VARS,)) * (hi - lo)
+
+
+def place(d: Draws, name: str, geom, pos, angle, stack: 'Stack', mask=None,
+          **kw):
+    """Place one entity per env against the stack's rows (all of them, or
+    those `mask` keeps), from the proposals of draw `name`:
+    :func:`randomize.place_from_proposals` on ``name/pos`` (B, N_TRIES, 2)
+    and ``name/ang`` (B, N_TRIES).  Returns (pos, angle, ok)."""
+    u_pos = d.uniform(f'{name}/pos', (R.N_TRIES, 2))
+    u_ang = d.uniform(f'{name}/ang', (R.N_TRIES,))
+    return R.place_from_proposals(
+        u_pos, u_ang, geom, pos, angle, stack.placed(),
+        stack.mask if mask is None else mask, **kw)
 
 
 def sample_phys(generator: torch.Generator, batch: int, flags: Flags,

@@ -49,60 +49,43 @@ extern "C" int physics_control_step(
   a.B = B;
   a.phys_steps = phys_steps;
   a.iterations = iterations;
-  if (mb != 1) return 1;
-  for (int b = 0; b < B; ++b) magical::control_step_env<1>(a, b);
-  return 0;
+  switch (mb) {
+#define MB_CASE(n)                                                   \
+  case n:                                                            \
+    for (int b = 0; b < B; ++b) magical::control_step_env<n>(a, b); \
+    return 0;
+    MB_CASE(1)
+    MB_CASE(3)
+    MB_CASE(4)
+    MB_CASE(7)
+    MB_CASE(8)
+    MB_CASE(10)
+#undef MB_CASE
+    default:
+      return 1;
+  }
 }
 
 namespace {
+
+using namespace magical_render;
 
 // The host loop of render_lo.cu / render_hi.cu: stage each env's display
 // list as the kernels stage it in shared memory, then shade every output
 // pixel (lo: shade_pixel; hi: shade_pixel_hi, the camera on the 4x grid).
 template <bool HI>
-int render_frame(const void* verts, const void* nv, const void* radius,
-                 const void* color, const void* active, const void* kind,
-                 const void* lw, const void* pos, const void* angle,
-                 void* out, int B, int P, int res, int nb, int ego,
-                 float scale, float half, float npx, float npy,
-                 float lw_scale, float two_scale, float bg0, float bg1,
-                 float bg2) {
-  using namespace magical_render;
-  if (P > 64) return 1;
-  Prim prims[64];
-  for (int b = 0; b < B; ++b) {
-    for (int i = 0; i < P; ++i) {
-      Prim& p = prims[i];
-      const int q = b * P + i;
-      for (int v = 0; v < NV; ++v) {
-        p.v[v][0] = ((const float*)verts)[(q * NV + v) * 2];
-        p.v[v][1] = ((const float*)verts)[(q * NV + v) * 2 + 1];
-      }
-      p.nv = ((const int*)nv)[q];
-      p.rad = ((const float*)radius)[q];
-      for (int c = 0; c < 3; ++c)
-        p.col[c] = ((const float*)color)[q * 3 + c];
-      p.active = ((const unsigned char*)active)[q] != 0;
-      p.kind = ((const int*)kind)[i];
-      p.lw = ((const float*)lw)[i];
-      prim_faces(p);
-    }
-    Camera cam = {HI ? 4 * res : res, ego, scale, half, npx, npy, 1.0f,
-                  0.0f, 0.0f, 0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
-    if (ego) {
-      const float a = ((const float*)angle)[b * nb];
-      cam.c = cosf(a);
-      cam.s = sinf(a);
-      cam.rx = ((const float*)pos)[b * nb * 2];
-      cam.ry = ((const float*)pos)[b * nb * 2 + 1];
-    }
-    for (int pix = 0; pix < res * res; ++pix) {
-      unsigned char* rgb =
-          (unsigned char*)out + ((size_t)b * res * res + pix) * 3;
+int render_frame(const RenderArgs& a) {
+  if (a.P > MAX_PRIMS) return 1;
+  static Prim prims[MAX_PRIMS];
+  for (int b = 0; b < a.B; ++b) {
+    for (int i = 0; i < a.P; ++i) load_prim(a, b, i, prims[i]);
+    const Camera cam = env_camera(a, b);
+    for (int pix = 0; pix < a.res * a.res; ++pix) {
+      unsigned char* rgb = a.out + ((size_t)b * a.res * a.res + pix) * 3;
       if (HI)
-        shade_pixel_hi(prims, P, cam, pix / res, pix % res, rgb);
+        shade_pixel_hi(prims, a.P, cam, pix / a.res, pix % a.res, rgb);
       else
-        shade_pixel(prims, P, cam, pix / res, pix % res, rgb);
+        shade_pixel(prims, a.P, cam, pix / a.res, pix % a.res, rgb);
     }
   }
   return 0;
@@ -116,15 +99,61 @@ int render_frame(const void* verts, const void* nv, const void* radius,
       const void *pos, const void *angle, void *out, int B, int P,         \
       int res, int nb, int ego, float scale, float half, float npx,        \
       float npy, float lw_scale, float two_scale, float bg0, float bg1,    \
-      float bg2, void *stream
-#define RENDER_PASS                                                       \
-  verts, nv, radius, color, active, kind, lw, pos, angle, out, B, P, res, \
-      nb, ego, scale, half, npx, npy, lw_scale, two_scale, bg0, bg1, bg2
+      float bg2
+#define RENDER_PASS(cam_res)                                               \
+  make_render_args(verts, nv, radius, color, active, kind, lw, pos, angle, \
+                   out, B, P, res, nb, cam_res, ego, scale, half, npx,     \
+                   npy, lw_scale, two_scale, bg0, bg1, bg2)
 
-extern "C" int render_lo_frame(RENDER_ARGS) {
-  return render_frame<false>(RENDER_PASS);
+extern "C" int render_lo_frame(RENDER_ARGS, void* stream) {
+  return render_frame<false>(RENDER_PASS(res));
 }
 
-extern "C" int render_hi_frame(RENDER_ARGS) {
-  return render_frame<true>(RENDER_PASS);
+extern "C" int render_hi_frame(RENDER_ARGS, void* stream) {
+  return render_frame<true>(RENDER_PASS(4 * res));
+}
+
+// K5's loop: per env and tile, the prims that meet the tile (slots 0 and 1
+// always), in display order, then the tile's pixels over them alone.
+extern "C" int render_lo_tiles2d(RENDER_ARGS, int row_tile, int col_tile,
+                                 void* stream) {
+  const RenderArgs a = RENDER_PASS(res);
+  if (P > MAX_PRIMS || res % row_tile != 0 || res % col_tile != 0) return 1;
+  static Prim kept[MAX_PRIMS];
+  for (int b = 0; b < B; ++b) {
+    const Camera cam = env_camera(a, b);
+    for (int r0 = 0; r0 < res; r0 += row_tile) {
+      for (int c0 = 0; c0 < res; c0 += col_tile) {
+        int n = 0;
+        for (int i = 0; i < P; ++i) {
+          Prim p;
+          load_prim(a, b, i, p);
+          if (i < 2 || prim_meets_tile(p, cam, r0, row_tile, c0, col_tile))
+            kept[n++] = p;
+        }
+        for (int q = 0; q < row_tile * col_tile; ++q) {
+          const int row = r0 + q / col_tile, col = c0 + q % col_tile;
+          shade_pixel(kept, n, cam, row, col,
+                      a.out + ((size_t)b * res * res + row * res + col) * 3);
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+// Each prim's screen box (B, P, 4) and whether it could be bounded (B, P),
+// as K5 computes them; `out` is unused.
+extern "C" int render_prim_bboxes(RENDER_ARGS, void* bboxes, void* bounded) {
+  const RenderArgs a = RENDER_PASS(res);
+  for (int b = 0; b < B; ++b) {
+    const Camera cam = env_camera(a, b);
+    for (int i = 0; i < P; ++i) {
+      Prim p;
+      load_prim(a, b, i, p);
+      float* bb = (float*)bboxes + ((size_t)b * P + i) * 4;
+      ((int*)bounded)[b * P + i] = prim_screen_bbox(p, cam, bb) ? 1 : 0;
+    }
+  }
+  return 0;
 }

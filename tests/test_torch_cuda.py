@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: ragged batch sizes, the wrappers' input checks, the ring-slot
-write, the hi render at 96² and 384², and the slices on CUDA against the
-same slices on the CPU.
+write, the hi render at 96² and 384², the control step at every block
+count, the renders (2-D tiled too) at 138 display prims, and the slices on
+CUDA against the same slices on the CPU.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -82,7 +83,8 @@ def test_control_step_kernel_rejects_what_it_does_not_take(cuda):
         physics_kernel.control_step(st, act.cpu())
     with pytest.raises(ValueError):
         physics_kernel.control_step(st, torch.stack([act, act], 1)[:, 0])
-    with pytest.raises(NotImplementedError):
+    # a block count no task family has
+    with pytest.raises(ValueError, match='max_blocks'):
         physics_kernel.control_step(make_initial_state(4, 2, 1, cuda), act)
 
 
@@ -173,10 +175,20 @@ def test_hi_render_kernel_rejects_what_it_does_not_take(cuda):
     _, st, _ = _states(2, 0, cuda)
     out = render_kernel.render_views_hi(st, 1, 1, True)
     assert out['ego'].device.type == 'cuda'
-    # ClusterColour's 10 blocks: 138 display prims, the kernel stages 64
+    # ClusterColour's 10 blocks: 138 display prims, which the kernels take
     wide = make_initial_state(2, 10, 1, cuda)
-    with pytest.raises(ValueError, match='64'):
-        render_kernel.render_views_hi(wide, 10, 1, False)
+    assert render_kernel.render_views_hi(wide, 10, 1, False)['ego'].shape \
+        == (2, 96, 96, 3)
+    # a display list past what the kernels stage
+    disp = render_kernel.kernel_display(wide, 10, 1, False)
+    n = render_kernel.MAX_PRIMS + 1 - disp['nv'].shape[1]
+    long = {k: torch.cat([v, v[..., :n] if v.dim() == 1 else v[:, :n]],
+                         0 if v.dim() == 1 else 1).contiguous()
+            for k, v in disp.items()}
+    frame = torch.empty((2, 96, 96, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match=str(render_kernel.MAX_PRIMS)):
+        render_kernel._launch('render_hi_frame', long, wide, frame, 'ego',
+                              96)
 
 
 def test_hi_slice_on_cuda_matches_the_slice_on_the_cpu(cuda):
@@ -195,3 +207,75 @@ def test_hi_slice_on_cuda_matches_the_slice_on_the_cpu(cuda):
     d = (go - co).abs()
     assert int(d.max()) <= HI_MAX_LEVELS
     assert float((d > 0).float().mean()) <= 1e-3
+
+
+# The six multi-block families: their block counts and their widest
+# display lists (ClusterColour-TestAll: 138 prims).
+FAMILY_IDS = ['FixColour', 'MakeLine', 'FindDupe', 'MatchRegions',
+              'ClusterColour', 'ClusterShape']
+
+
+def _family_states(cuda, family, batch, n_steps):
+    env = BatchedEnv(f'{family}-TestAll-LoRes4E-v0', device=cuda)
+    carry, _ = env.reset(2, batch)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(n_steps):
+        act = torch.randint(0, 18, (batch,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        carry, *_ = env.step(carry, act)
+    act = torch.randint(0, 18, (batch,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    return env, carry.state.clone(), act
+
+
+@pytest.mark.parametrize('family', FAMILY_IDS)
+def test_control_step_kernel_at_every_block_count(cuda, family):
+    """K1 at 3, 4, 7, 8 and 10 blocks: the median env within rounding of
+    the plain version, and the contact ids equal in all but the chaotic
+    few."""
+    env, st, act = _family_states(cuda, family, 200, 2)
+    assert st.max_blocks in physics_kernel.SUPPORTED_MAX_BLOCKS
+    sp = physics.control_step(st, act)
+    sk = physics_kernel.control_step(st.clone(), act)
+    torch.cuda.synchronize()
+    for f in ('pos', 'angle', 'vel', 'omega', 'con_jn', 'con_jt',
+              'joint_acc'):
+        err = (getattr(sk, f) - getattr(sp, f)).abs().reshape(200, -1) \
+            .amax(1)
+        assert float(err.median()) <= STEP_MEDIAN_ATOL, f
+    assert float((sk.con_id != sp.con_id).any(1).float().mean()) <= 0.05
+    assert torch.equal(sk.t, sp.t)
+
+
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_render_kernels_at_138_prims(cuda, view):
+    """K2, K3, K4 and K5 on ClusterColour-TestAll states, 138 display
+    prims: K2/K3 within a level of the plain lo render, K5 byte-equal to
+    it and to K3, K4 within the hi tolerance."""
+    env, st, _ = _family_states(cuda, 'ClusterColour', 24, 1)
+    args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
+    ss = env.static_shapes
+    assert render_kernel.kernel_display(st, *args, ss)['nv'].shape[1] == 138
+    plain = render.render_views(st, *args, views=(view,), fidelity='lo',
+                                static_shapes=ss)[view]
+    k3 = render_kernel.render_views_lo(st, *args, views=(view,),
+                                       static_shapes=ss)[view]
+    spec = preproc.PreprocSpec(None, **{f'{view}_frames': 4})
+    ring = torch.zeros((4, 24, 96, 96, 3), dtype=torch.uint8, device=cuda)
+    render_kernel.render_into_slots(st, {view: ring}, 3, *args, spec,
+                                    static_shapes=ss)
+    n = render_kernel.render_lo_tiles2d.launches
+    for tiles in ((16, 16), (32, 32), (8, 48)):
+        k5 = render_kernel.render_views_lo(st, *args, views=(view,),
+                                           static_shapes=ss,
+                                           tiles2d=tiles)[view]
+        assert torch.equal(k5, plain) and torch.equal(k5, k3), tiles
+    assert render_kernel.render_lo_tiles2d.launches == n + 3
+    for got in (k3, ring[3]):
+        assert int((got.int() - plain.int()).abs().max()) <= MAX_LEVELS
+    hi = render_kernel.render_views_hi(st, *args, views=(view,),
+                                       static_shapes=ss)[view]
+    _hi_close(hi, render.render_views(st, *args, views=(view,),
+                                      fidelity='hi', static_shapes=ss)[view])
+    with pytest.raises(ValueError, match='divide'):
+        render_kernel.render_views_lo(st, *args, tiles2d=(20, 16))

@@ -44,11 +44,18 @@ def host_lib(tmp_path_factory):
          os.path.join(HERE, 'kernel_host_shim.cpp')],
         check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
+    # the host build's physics_control_step takes every block count, with
+    # the arguments of the kernel's per-block-count entry points
+    sigs = dict(_build.SIGNATURES, physics_control_step=_build.SIGNATURES[
+        'physics_control_step_mb1'])
     for name in ('physics_table_layout', 'physics_control_step',
-                 'render_lo_frame', 'render_hi_frame'):
+                 'render_lo_frame', 'render_hi_frame', 'render_lo_tiles2d'):
         fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
+        fn.argtypes = sigs[name]
         fn.restype = ctypes.c_int
+    lib.render_prim_bboxes.argtypes = \
+        _build.SIGNATURES['render_lo_frame'][:-1] + [ctypes.c_void_p] * 2
+    lib.render_prim_bboxes.restype = ctypes.c_int
     return lib
 
 
@@ -166,3 +173,100 @@ def test_hi_render_kernel_arithmetic_matches_plain(host_lib, view):
     # by up to 16 levels; the same operations in the same order leave none
     assert torch.equal(out, plain)
     assert np.unique(plain.numpy()).size > 20
+
+
+@pytest.mark.parametrize('task', ['FixColour', 'MakeLine', 'FindDupe',
+                                  'MatchRegions', 'ClusterColour'])
+def test_physics_kernel_arithmetic_at_every_block_count(host_lib, task):
+    """control_step_env<MB> at the families' block counts (3, 4, 7, 8, 10),
+    from TestAll resets (every block shape) after a few random steps:
+    one substep to rounding, one control step to the median env."""
+    t = ALL_TASKS[task]
+    mb = t.max_blocks
+    assert mb in physics_kernel.SUPPORTED_MAX_BLOCKS
+    ftab, itab, _ = physics_kernel.table_arrays(mb)
+    ftab, itab = torch.from_numpy(ftab), torch.from_numpy(itab)
+    B = 8
+    st = t.reset_fn(torch.Generator().manual_seed(1), B,
+                    t.flags_for('TestAll'), 'cpu')
+    rng = np.random.default_rng(mb)
+    acts = torch.from_numpy(rng.integers(0, 18, (3, B)).astype(np.int32))
+    for a in acts[:2]:
+        st = physics.control_step(st, a)
+    a = acts[2]
+    sk = _kernel_step(host_lib, st, a, ftab, itab, 1)
+    sp = physics.control_step(st, a, phys_steps=1)
+    assert torch.equal(sk.pos, sp.pos) and torch.equal(sk.angle, sp.angle)
+    for f in FIELDS:
+        assert float((getattr(sk, f) - getattr(sp, f)).abs().max()) \
+            <= SUBSTEP_ATOL, f
+    assert torch.equal(sk.con_id, sp.con_id)
+    sk = _kernel_step(host_lib, st, a, ftab, itab, C.PHYS_STEPS)
+    sp = physics.control_step(st, a)
+    for f in ('pos', 'angle') + FIELDS:
+        err = (getattr(sk, f) - getattr(sp, f)).abs() \
+            .reshape(st.batch, -1).amax(1)
+        assert float(err.median()) <= STEP_MEDIAN_ATOL, f
+    assert torch.equal(sk.t, sp.t)
+    # a block count the kernel is not built for
+    assert host_lib.physics_control_step(
+        *physics_kernel.kernel_args(sk, a, ftab, itab)[:-4], B, 2, 1, 1,
+        None) != 0
+
+
+def _host_render_args(disp, st, out, res, view):
+    ptrs = [disp[k].data_ptr() for k in
+            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
+    ptrs += [st.pos.data_ptr(), st.angle.data_ptr(), out.data_ptr()]
+    return ptrs + [st.batch, disp['nv'].shape[1], res, st.n_bodies,
+                   *render_kernel.camera_args(view, res)]
+
+
+def _random_scene(task, seed):
+    """A TestAll reset of `task` with every body moved and turned at
+    random: random display lists of every block shape."""
+    t = ALL_TASKS[task]
+    st = t.reset_fn(torch.Generator().manual_seed(seed), 4,
+                    t.flags_for('TestAll'), 'cpu')
+    rng = np.random.default_rng(seed)
+    st.pos += torch.from_numpy(rng.normal(0.0, 0.1, st.pos.shape)
+                               .astype(np.float32))
+    st.angle = torch.from_numpy(rng.uniform(-np.pi, np.pi, st.angle.shape)
+                                .astype(np.float32))
+    return st, (t.max_blocks, t.max_goals, False)
+
+
+@pytest.mark.parametrize('task', ['FixColour', 'ClusterShape'])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_tiles2d_kernel_arithmetic_matches_plain(host_lib, task, view):
+    """K5's cull and compaction, built for the host: its frames equal the
+    plain lo render at 96² and 384², for tiles of several shapes, and its
+    screen boxes equal the plain ones."""
+    st, scene = _random_scene(task, 2)
+    disp = render_kernel.kernel_display(st, *scene)
+    P = disp['nv'].shape[1]
+    for res, tiles in ((96, ((16, 16), (32, 32), (8, 48))),
+                       (384, ((32, 32),))):
+        plain = render.render_views(st, *scene, res=res, views=(view,),
+                                    fidelity='lo')[view]
+        for rt, ct in tiles:
+            out = torch.empty((st.batch, res, res, 3), dtype=torch.uint8)
+            assert host_lib.render_lo_tiles2d(
+                *_host_render_args(disp, st, out, res, view), rt, ct,
+                None) == 0
+            assert torch.equal(out, plain), (res, rt, ct)
+        bb = torch.empty((st.batch, P, 4))
+        bounded = torch.empty((st.batch, P), dtype=torch.int32)
+        assert host_lib.render_prim_bboxes(
+            *_host_render_args(disp, st, plain, res, view), bb.data_ptr(),
+            bounded.data_ptr()) == 0
+        pbb, pbounded = render_kernel.prim_screen_bboxes(disp, st, view, res)
+        assert torch.equal(bounded.bool(), pbounded)
+        assert bool((pbounded | ~disp['active']).all())
+        # the same formulas; the plain version's gathers add in another
+        # order: within 1e-3 px
+        torch.testing.assert_close(bb[pbounded], pbb[pbounded], rtol=0,
+                                   atol=1e-3)
+    out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
+    assert host_lib.render_lo_tiles2d(
+        *_host_render_args(disp, st, out, 96, view), 7, 16, None) != 0

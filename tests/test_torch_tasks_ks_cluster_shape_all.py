@@ -1,0 +1,11 @@
+"""ClusterShape-TestAll's resets, magical_tpu_torch against
+magical_tpu, in distribution (tests/test_torch_tasks_ks.py)."""
+
+import pytest
+
+from test_torch_tasks_ks import check_reset_distributions
+
+
+@pytest.mark.parametrize('variant', ['TestAll'])
+def test_reset_distributions_match(variant):
+    check_reset_distributions('ClusterShape', variant)
