@@ -15,8 +15,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                randomised dynamics), MoveToRegion-TestAll (active goals)
                and the Demo and TestAll variants of the six multi-block
                families (3 to 10 blocks, up to 138 display prims): the
-               control step (1 and 5 steps), the lo render into a ring
-               slot and into a fresh frame, the 2-D tiled lo render
+               control step (1 and 5 steps; and twice on the same inputs,
+               which must give the same bits), the lo render into a ring
+               slot and into a fresh frame (each building the display
+               list on the card from the state), the 2-D tiled lo render
                (tiles of 16² and 32², byte-equal to the plain lo render
                and to the fresh-frame kernel) and, on the Test states, the
                hi render into a ring slot and into a fresh frame (allo and
@@ -26,9 +28,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   4. main    — MoveToCorner-Demo-LoRes4E-v0 at 4096 envs: reset, then a
                full 80-step episode with seeded random actions, counting
                kernel launches and timing the steps with CUDA events;
-               then, from the episode's last state, each kernel against
-               its plain version at the main path's shapes (one control
-               step; allo and ego frames).
+               the card's busy share and the host-to-device copies a step
+               from a profiler trace of 3 more steps (a copy fails the
+               run); then, from the last state, each kernel against its
+               plain version at the main path's shapes (one control step;
+               allo and ego frames).
   5. hi      — MoveToCorner-TestAll-LoRes4E-v0 at hi fidelity, 1024 envs:
                reset and a full 80-step episode through the control step
                and the hi render, counted and timed as `main` is.
@@ -39,24 +43,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
   7. multi   — the six multi-block families at 4096 envs:
                ClusterColour-Demo-LoRes4E-v0 for a whole 240-step episode
                (checked as `main` is, and its last state by
-               validate.state_finite); then <Family>-Demo-LoRes4E-v0 of
+               validate.state_finite; busy share and copies a step as in
+               `main`); then <Family>-Demo-LoRes4E-v0 of
                every family, MoveToRegion's too, 5 warm-up and 20 timed
                steps each, and the mean env-steps/s over the 8 families;
                ClusterColour-TestAll-LoRes4E-v0 (138 display prims) for
-               5 + 20 steps, with the card's busy share from a profiler
-               trace of 3 more; its frames through
+               5 + 20 steps, with the card's busy share and copies a
+               step from a profiler trace of 3 more; its frames through
                render_views_lo(tiles2d=(16, 16)), equal to the ring slot
                the step wrote; and ClusterColour-TestAll at hi fidelity,
                1024 envs, 5 + 5 steps.  Every path zeroes the launch
                counts just before it and reads them just after.
   8. times   — each kernel (time_kernel) on the last state of each path
                that runs it, beside its plain version, the kernel alone
-               and the display-list build: the control step at every
-               block count (4096 envs; mb 10 on Demo and on TestAll
-               states); the lo renders (ring slot, fresh frame) on the
-               main path and at 138 prims, the 2-D tiled lo render at 138
-               prims (4096 envs); the hi render on the hi path and at 138
-               prims (1024 envs).
+               and (K4, K5) the display-list build: the control step at
+               every block count (4096 envs; mb 10 on Demo and on TestAll
+               states), with its clock64() cycles per phase; the lo
+               renders (ring slot, fresh frame) on the main path and at
+               138 prims, the fresh frame also over tiles of 16², 32²,
+               48² and 96² (one block a frame); the 2-D tiled lo render
+               at 138 prims (4096 envs); the hi render on the hi path and
+               at 138 prims (1024 envs); and the rest of the lo step, the
+               observation assembly and the score, alone on the main
+               path's and ClusterColour-TestAll's last states.
 
 Every kernel's line in the JSON table carries its bound: the larger of
 its operations over 67 TFLOP/s (float32, outside the tensor cores) and
@@ -277,7 +286,7 @@ def _samples_in(lo, hi, n, sub):
     return (last - first + 1).clamp(min=0)
 
 
-def render_work(disp, state, view, res, fidelity='lo'):
+def render_work(disp, state, view, res, fidelity='lo', inputs=None):
     """(operations, bytes, prims per sample) of one view's frames of
     `state` at `res`: the least work that gives them, which is the same
     for every kernel that renders them (K2, K3 and K5 at lo).  Each pixel
@@ -286,7 +295,9 @@ def render_work(disp, state, view, res, fidelity='lo'):
     outside which a prim's lo alpha and hi coverage are exactly 0), each
     prim at its _prim_ops; the camera and the quantise 22 ops a pixel or
     subpixel, the 4x4 mean 60 ops a pixel.  Bytes: the display list, the
-    robot pose and the uint8 frames, once each."""
+    robot pose and the uint8 frames, once each; or, where the kernel
+    reads `inputs` (K2/K3: the state's tensors and the display program)
+    instead of the display list, those and the frames."""
     import torch
     from magical_tpu_torch.core import render_kernel
     sub = 4 if fidelity == 'hi' else 1
@@ -300,10 +311,11 @@ def render_work(disp, state, view, res, fidelity='lo'):
     per_prim = _prim_ops(disp, hard=fidelity == 'hi')
     ops = float((per_prim * area).sum()) + state.batch * n * n * 22 + (
         state.batch * res * res * 60 if fidelity == 'hi' else 0)
-    nbytes = (sum(x.nelement() * x.element_size() for x in disp.values())
-              + state.pos[:, 0].nelement() * 4
-              + state.angle[:, 0].nelement() * 4
-              + state.batch * res * res * 3)
+    nbytes = state.batch * res * res * 3 + (
+        sum(x.nelement() * x.element_size() for x in inputs)
+        if inputs is not None else
+        sum(x.nelement() * x.element_size() for x in disp.values())
+        + state.pos[:, 0].nelement() * 4 + state.angle[:, 0].nelement() * 4)
     return ops, nbytes, float(area.sum()) / (state.batch * n * n)
 
 
@@ -340,6 +352,16 @@ def phys_compare(state0, actions, checks=(1, 5)):
     out = None
     for i in range(max(checks)):
         sk = physics_kernel.control_step(sk, actions[i])
+        if i == 0:
+            twin = physics_kernel.control_step(state0.clone(), actions[0])
+            torch.cuda.synchronize()
+            if not all(torch.equal(getattr(twin, f), getattr(sk, f))
+                       for f, _, _ in physics_kernel._fields(
+                           sk.max_blocks)):
+                raise AssertionError(f'K1 mb={sk.max_blocks}: two runs on '
+                                     f'the same inputs differ')
+            print(f'[kernels] K1 mb={sk.max_blocks} B={B}: two runs on the '
+                  f'same inputs give identical bits')
         both = physics.control_step(both, torch.cat([actions[i]] * 2))
         if i + 1 in checks:
             sp, sc = (slice_envs(both, k * B, (k + 1) * B) for k in (0, 1))
@@ -652,6 +674,10 @@ def phase_main(smi):
     print(f'[main] obs {tuple(obs.shape)} uint8; done only at t=80; score '
           f'mean {float(score.mean()):.6f} in [0, 1]; newest frame vs plain '
           f'render {d} levels')
+    carry, _, h2d = report_busy('main', ENV_NAME, env, carry)
+    if h2d:
+        raise AssertionError(f'main: {h2d} host-to-device copies a step; '
+                             f'the lo step copies nothing from the host')
     return env, carry, launches, rate
 
 
@@ -870,6 +896,17 @@ def device_busy(env, carry, n_steps=3):
     return carry, busy_us / 1e6 / wall, h2d / n_steps
 
 
+def report_busy(where, name, env, carry):
+    """device_busy over 3 more steps, printed; returns (carry, busy share,
+    host-to-device copies a step)."""
+    carry, busy, h2d = device_busy(env, carry)
+    print(f'[{where}] {name}: card busy '
+          + ('not measured (no device time in the trace)' if busy is None
+             else f'{busy:.1%} of 3 steps\' host wall time, '
+             f'{h2d:.0f} host-to-device copies a step'))
+    return carry, busy, h2d
+
+
 def phase_multi(smi, main_rate):
     """The six multi-block families at 4096 envs (see the module
     docstring); returns what the kernel table needs."""
@@ -905,6 +942,7 @@ def phase_multi(smi, main_rate):
           f'plain render {d} levels; validate.state_finite holds on the last '
           f'state')
     out['K1 launches'][10] = r['launches']['K1']
+    report_busy('multi', MULTI_EPISODE, env, carry)
     del r, env, carry
 
     # every family's Demo: bench.py's per-task rows
@@ -932,11 +970,8 @@ def phase_multi(smi, main_rate):
     P = render_kernel.kernel_display(carry.state, *env._render_args(),
                                      env.static_shapes)['nv'].shape[1]
     out['K1 launches'][10] += r['launches']['K1']
-    carry, busy, h2d = device_busy(env, carry)
-    print(f'[multi] {WIDE_NAME} ({P} display prims): card busy '
-          + ('not measured (no device time in the trace)' if busy is None
-             else f'{busy:.1%} of 3 steps\' host wall time, '
-             f'{h2d:.0f} host-to-device copies a step'))
+    carry, _, _ = report_busy('multi', f'{WIDE_NAME} ({P} display prims)',
+                              env, carry)
     zero_counts()
     frames = render_kernel.render_views_lo(
         carry.state, *env._render_args(), views=('allo', 'ego'),
@@ -978,7 +1013,14 @@ def time_kernel(k, env, carry, tiles=None):
                                 device=DEVICE).manual_seed(SEED + 3))
         ms = cuda_ms(lambda: physics_kernel.control_step(state, act), 10)
         ops, nbytes = k1_work(state)
+        # where a step's cycles go: clock64() per phase, summed over envs
+        clock = torch.zeros((state.batch, len(physics_kernel.PHASES)),
+                            dtype=torch.int64, device=DEVICE)
+        physics_kernel.control_step(state.clone(), act, phase_clock=clock)
+        per_env = clock.double().sum(0) / state.batch
+        phases = dict(zip(physics_kernel.PHASES, per_env.tolist()))
         return dict(ms=ms, alone_ms=ms, disp_ms=None, ops=ops, bytes=nbytes,
+                    phases=phases,
                     plain_ms=cuda_ms(lambda: physics.control_step(state, act),
                                      1))
     args, ss, spec = env._render_args(), env.static_shapes, env.preproc
@@ -1007,14 +1049,30 @@ def time_kernel(k, env, carry, tiles=None):
         out = torch.empty((state.batch, 96, 96, 3), dtype=torch.uint8,
                           device=DEVICE)
         extra = tiles or ()
-    alone_ms = cuda_ms(lambda: rk._launch(entry, disp, state, out, 'ego', 96,
-                                          *extra), 20)
-    disp_ms = cuda_ms(lambda: rk.kernel_display(state, *args,
-                                                static_shapes=ss), 10)
-    ops, nbytes, per_sample = render_work(disp, state, 'ego', 96, fidelity)
+    if k in ('K2', 'K3'):
+        # the kernel alone: the display program looked up, the list built
+        # in the kernel; and K3 over each tiling, one block a whole frame
+        # (96 x 96) included
+        prog = rk.display_program(*args, ss, state.device)
+        alone_ms = cuda_ms(lambda: rk._launch_scene(entry, prog, state, out,
+                                                    'ego', 96), 20)
+        tiles_ms = {} if k == 'K2' else {
+            tile: cuda_ms(lambda: rk._launch_scene(
+                entry, prog, state, out, 'ego', 96, tile), 20)
+            for tile in ((16, 16), (32, 32), (48, 48), (96, 96))}
+        disp_ms = None
+        inputs = [getattr(state, f) for f, _ in rk._SCENE_FIELDS] + list(prog)
+    else:
+        alone_ms = cuda_ms(lambda: rk._launch(entry, disp, state, out, 'ego',
+                                              96, *extra), 20)
+        disp_ms = cuda_ms(lambda: rk.kernel_display(state, *args,
+                                                    static_shapes=ss), 10)
+        tiles_ms, inputs = {}, None
+    ops, nbytes, per_sample = render_work(disp, state, 'ego', 96, fidelity,
+                                          inputs)
     return dict(ms=ms, alone_ms=alone_ms, disp_ms=disp_ms, plain_ms=plain_ms,
                 ops=ops, bytes=nbytes, per_sample=per_sample,
-                prims=disp['nv'].shape[1])
+                prims=disp['nv'].shape[1], tiles_ms=tiles_ms)
 
 
 def phase_times(cases):
@@ -1029,11 +1087,35 @@ def phase_times(cases):
             f'{t["per_sample"]:.3f} prims composited a '
             f'{"subpixel" if k == "K4" else "pixel"}'))
         print(f'[times] {label} ({what}): kernel {t["ms"]:.4f} ms'
-              + ('' if k == 'K1' else f' (alone {t["alone_ms"]:.4f} ms, '
-                 f'display-list build {t["disp_ms"]:.4f} ms)')
+              + ('' if k == 'K1' else f' (alone {t["alone_ms"]:.4f} ms'
+                 + ('' if t['disp_ms'] is None else
+                    f', display-list build {t["disp_ms"]:.4f} ms') + ')')
               + f', plain {t["plain_ms"]:.4f} ms, bound {bound_ms:.5f} ms '
               f'({bound_by})')
+        if t.get('phases'):
+            cyc = t['phases']
+            total = sum(cyc.values())
+            print(f'[times] {label} cycles an env a step (clock64, lane 0): '
+                  f'{total / 1e6:.3f} M; ' + ', '.join(
+                      f'{p} {v / total:.1%}' for p, v in cyc.items()))
+        if t.get('tiles_ms'):
+            print(f'[times] {label} by tiling (kernel alone): ' + ', '.join(
+                f'{r}x{c} {v:.4f} ms' for (r, c), v in t['tiles_ms'].items()))
     return times
+
+
+def step_rest(env, carry):
+    """The step's work besides K1 and the render, each part alone on the
+    state of `carry`, timed with CUDA events and printed: the observation
+    assembly (preproc.observation_cf) and the score."""
+    from magical_tpu_torch.core import preproc
+    spec = env.preproc
+    obs_ms = cuda_ms(lambda: preproc.observation_cf(spec, carry.frames,
+                                                    carry.t, spec.res), 20)
+    score_ms = cuda_ms(lambda: env.task.score_fn(carry.state), 20)
+    print(f'[times] rest of the step ({env.env_name}, '
+          f'B={carry.state.batch}): observation {obs_ms:.4f} ms, score '
+          f'{score_ms:.4f} ms')
 
 
 def main():
@@ -1079,6 +1161,8 @@ def main():
     cases += [(f'K5 {r}x{c}', 'K5', lo_env, lo_carry, (r, c))
               for r, c in TILES]
     times = timed('times', phase_times, cases)
+    step_rest(env, carry)
+    step_rest(lo_env, lo_carry)
     launches['K4'] = hi_k4
     errs['K1'] = max(errs['K1'], kerr['K1'][1])
     for k in ('K2', 'K3'):

@@ -40,11 +40,13 @@ _I = ctypes.c_int
 # C entry points and their argument types.
 SIGNATURES = {
     'physics_table_layout': [_P],
-    **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P]
+    **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P] * 2
        for mb in (1, 3, 4, 7, 8, 10)},
-    'render_lo_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
-    + [_P],
-    'render_lo_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
+    'render_program_layout': [_P],
+    'render_lo_into_slot': [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9
+    + [_I] * 2 + [_P],
+    'render_lo_frame': [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9
+    + [_I] * 2 + [_P],
     'render_lo_tiles2d': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
     + [_I] * 2 + [_P],
     'render_hi_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9

@@ -3,7 +3,7 @@
 The PyTorch counterpart of ``magical_tpu/api/batched_env.py``: an
 environment family stepped for thousands of instances in lockstep.
 
-    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0', device='cuda')
+    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0')     # on the card
     carry, obs = env.reset(seed, 4096)
     carry, obs, rew, done, info = env.step(carry, actions)
 
@@ -13,7 +13,9 @@ fidelity (lo or hi, ``core/render_kernel.py``), which writes the new frame
 into slot ``t mod depth`` of each view's frame ring, then assembles the
 observation.  Raw IDs (no preprocessor suffix, and the DebugReward IDs)
 observe a ``{allo, ego}`` dict of fresh 384² frames instead, with no ring.
-On the CPU the same calls run the kernels' plain PyTorch versions.  `done`
+The entry points run on the card unless asked for the CPU
+(``device='cpu'``), where the same calls run the kernels' plain PyTorch
+versions; without a card and without ``device='cpu'`` they raise.  `done`
 fires exactly at the episode's max step and ``info['eval_score']``
 carries the end-of-episode score, zero elsewhere.
 
@@ -53,15 +55,28 @@ class EnvCarry:
     t: int
 
 
+def resolve_device(device) -> torch.device:
+    """The torch device of an entry point's `device` argument.  The port
+    runs on the card unless the caller asks for the CPU: a CUDA device
+    (the default) without a card raises, with no fall-back to the CPU."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'magical_tpu_torch runs on a CUDA card by default and none is '
+            "available: pass device='cpu' to run the plain PyTorch versions "
+            'of the kernels on the CPU')
+    return device
+
+
 class BatchedEnv:
     """Batched environment family for one registered env ID, on one
-    device."""
+    device: the CUDA card by default, the CPU with ``device='cpu'``."""
 
     def __init__(self, env_name: str, fidelity: str = 'lo',
-                 device: Union[str, torch.device] = 'cpu'):
+                 device: Union[str, torch.device] = 'cuda'):
         name = EnvName(env_name)
         self.env_name = env_name
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if fidelity not in ('lo', 'hi'):
             raise ValueError(f'fidelity must be lo or hi, not {fidelity!r}')
         self.task = ALL_TASKS[name.task]

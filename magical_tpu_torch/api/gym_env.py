@@ -5,10 +5,10 @@ interface of the reference's BaseEnv (base_env.py:60-343) —
 ``reset() -> obs``, ``step(a) -> (obs, rew, done, info)``, ``seed``,
 ``render``, ``observation_space``/``action_space``,
 ``score_on_end_of_traj`` — over a batch-1 :class:`BatchedEnv` on one
-device.  Observations and frames come back as numpy arrays.
+device (the card unless ``device='cpu'``).  Observations and frames
+come back as numpy arrays.
 
-    env = MagicalGymEnv('MoveToRegion-TestAll-v0', fidelity='hi',
-                        device='cuda')
+    env = MagicalGymEnv('MoveToRegion-TestAll-v0', fidelity='hi')
     env.seed(0)
     obs = env.reset()              # {'allo', 'ego'}: (384, 384, 3) uint8
     obs, rew, done, info = env.step(3)
@@ -37,7 +37,7 @@ class MagicalGymEnv:
     metadata = {'render.modes': ['rgb_array']}
 
     def __init__(self, env_name: str, fidelity: str = 'lo',
-                 device: Union[str, torch.device] = 'cpu'):
+                 device: Union[str, torch.device] = 'cuda'):
         self._batched = BatchedEnv(env_name, fidelity=fidelity,
                                    device=device)
         self.env_name = env_name

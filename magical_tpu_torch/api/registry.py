@@ -62,7 +62,8 @@ def register_envs():
 def make(env_name: str, batched: bool = False, **kwargs):
     """gym.make equivalent.  By default returns the single-env Gym-style
     adapter; pass batched=True for the native BatchedEnv.  Keyword
-    arguments (`fidelity`, `device`) go to the env."""
+    arguments (`fidelity`, `device`) go to the env, which runs on the card
+    unless `device='cpu'` is given (and raises without a card)."""
     register_envs()
     if env_name not in ALL_REGISTERED_ENVS:
         raise KeyError(f'unknown env id {env_name!r}')

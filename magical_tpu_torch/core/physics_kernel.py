@@ -4,10 +4,10 @@ The kernel replaces the Pallas physics kernel of
 ``magical_tpu/core/physics_pallas.py`` (``pl.pallas_call`` at :1262,
 driven by ``control_step_pallas`` :1320), but computes the XLA reference
 semantics of ``magical_tpu/core/physics.py``: its plain version is
-:func:`magical_tpu_torch.core.physics.control_step`.  One thread per env
-runs the whole control step (10 substeps x 10 solver iterations) with the
-env's bodies and contacts in registers and local memory; the source note
-in the ``.cu`` file says what bounds it.
+:func:`magical_tpu_torch.core.physics.control_step`.  One warp per env
+runs the whole control step (10 substeps x 10 solver iterations), its
+lanes over the env's sub-shape pairs and contacts, the env's state in
+shared memory; the source note in the ``.cu`` file says what bounds it.
 
 The TPU's ``pack_state``/``tile_for``/``_pad_batch`` machinery has no
 counterpart: the kernel reads the state tensors in place and masks the
@@ -33,6 +33,8 @@ from magical_tpu_torch.core.state import (EnvState, max_contacts,
 SUPPORTED_MAX_BLOCKS = (1, 3, 4, 7, 8, 10)
 # Offsets the C side reports through physics_table_layout.
 _N_SCALARS = 7
+# The phases whose cycles the kernel counts (csrc/physics_step.cuh PH_*).
+PHASES = ('narrowphase', 'prestep', 'sweep', 'apply', 'joints', 'other')
 
 _TABLES = {}
 
@@ -131,33 +133,47 @@ def check_inputs(state: EnvState, action: torch.Tensor):
 
 def kernel_args(state: EnvState, action: torch.Tensor, ftab, itab,
                 phys_steps: int = C.PHYS_STEPS,
-                iterations: int = C.PHYS_ITER):
-    """The C entry point's arguments for this state (pointers as ints)."""
+                iterations: int = C.PHYS_ITER, phase_clock=None):
+    """The C entry point's arguments for this state (pointers as ints),
+    but the stream."""
     ptrs = [getattr(state, name).data_ptr()
             for name, _, _ in _fields(state.max_blocks)]
     return ptrs + [action.data_ptr(), ftab.data_ptr(), itab.data_ptr(),
-                   state.batch, state.max_blocks, phys_steps, iterations]
+                   state.batch, state.max_blocks, phys_steps, iterations,
+                   None if phase_clock is None else phase_clock.data_ptr()]
 
 
-def control_step(state: EnvState, action: torch.Tensor) -> EnvState:
+def control_step(state: EnvState, action: torch.Tensor,
+                 phase_clock=None) -> EnvState:
     """One control step for every env.
 
     On a CUDA state this launches the kernel, which updates the state's
     tensors IN PLACE (the returned state is the argument); `action` must
-    be an int32 (B,) tensor on the same device.  On a CPU state it runs
-    the plain version, :func:`core.physics.control_step`, which returns a
-    new state."""
+    be an int32 (B,) tensor on the same device.  `phase_clock`, an int64
+    (B, len(PHASES)) CUDA tensor, gets each env's clock64() cycles in each
+    phase of :data:`PHASES` added to it.  On a CPU state it runs the plain
+    version, :func:`core.physics.control_step`, which returns a new
+    state."""
     if state.device.type == 'cpu' and action.device.type == 'cpu':
         return physics.control_step(state, action)
     if state.device.type != 'cuda':
         raise ValueError(f'physics kernel needs a CUDA state, got '
                          f'{state.device}')
     check_inputs(state, action)
+    if phase_clock is not None and (
+            phase_clock.device != state.device
+            or phase_clock.dtype != torch.int64
+            or tuple(phase_clock.shape) != (state.batch, len(PHASES))
+            or not phase_clock.is_contiguous()):
+        raise ValueError(f'phase_clock must be a contiguous int64 '
+                         f'{(state.batch, len(PHASES))} tensor on '
+                         f'{state.device}')
     ftab, itab = _tables(state.max_blocks, state.device)
     stream = torch.cuda.current_stream(state.device).cuda_stream
     entry = f'physics_control_step_mb{state.max_blocks}'
     rc = getattr(_build.library(), entry)(
-        *kernel_args(state, action, ftab, itab), stream)
+        *kernel_args(state, action, ftab, itab, phase_clock=phase_clock),
+        stream)
     _build.check(rc, entry)
     control_step.launches += 1
     return state

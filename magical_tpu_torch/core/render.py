@@ -220,6 +220,43 @@ def build_display_list(state: EnvState, max_blocks: int, max_goals: int,
 
 
 @functools.lru_cache(maxsize=None)
+def display_slots(max_blocks: int, max_goals: int, robot_first: bool,
+                  static_shapes=None):
+    """Where each slot of :func:`build_display_list` comes from, in emit
+    order: a tuple of source tuples, one a slot,
+
+      ('arena', 'fill' | 'border'), ('goal', g, 'fill' | 'border'),
+      ('finger', i, side) (i-th of _static_prims' robot prims, on body
+      1 + side), ('body', 'outer' | 'inner'), ('eye', side),
+      ('pupil', side), ('block', b, table, k, shape)
+
+    where a block's `table` is 0 (dark outer parts) or 1 (bright inner
+    parts), `k` its sub-shape and `shape` the static shape code, or None
+    where the env's ``block_shape`` decides.  The render kernels build the
+    list from these on the card (``core/render_kernel.display_program``);
+    the tests hold the two against each other."""
+    slots = [('arena', 'fill'), ('arena', 'border')]
+    for g in range(max_goals):
+        slots += [('goal', g, 'fill'), ('goal', g, 'border')]
+    robot = [('finger', i, side)
+             for i, (_, side, _, _) in enumerate(_static_prims()[1])]
+    robot += [('body', 'outer'), ('body', 'inner')]
+    for side in range(2):
+        robot += [('eye', side), ('pupil', side)]
+    blocks = []
+    for b in range(max_blocks):
+        sc = None if static_shapes is None else static_shapes[b]
+        if static_shapes is not None and sc is None:
+            continue                           # slot never active
+        for table, act_t in enumerate((G.BLOCK_SUB_ACTIVE,
+                                       G.BLOCK_SUB_ACTIVE_INNER)):
+            blocks += [('block', b, table, k, sc) for k in range(KSUB)
+                       if sc is None or bool(act_t[sc, k])]
+    return tuple(slots + (robot + blocks if robot_first
+                          else blocks + robot))
+
+
+@functools.lru_cache(maxsize=None)
 def static_prim_meta(max_blocks: int, max_goals: int, robot_first: bool,
                      static_shapes=None):
     """Per-slot static metadata tuple ((kind, lw, nv-or-None, tag,

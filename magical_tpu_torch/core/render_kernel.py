@@ -22,24 +22,31 @@ The CUDA kernels and their entry points:
 
 Their plain version is ``core/render.py``'s ``render_views`` at the same
 fidelity: ``render_frame(aa=True)`` + ``to_uint8`` at lo, and hard
-coverage at 4x, ``to_uint8`` and ``downsample4`` at hi.  The display list
-is built by the plain, batched ``build_display_list`` (as the JAX package
-builds it in XLA); the kernels take per-slot kinds and line widths from
-``static_prim_meta`` and compute the camera themselves.
+coverage at 4x, ``to_uint8`` and ``downsample4`` at hi.  K2 and K3 take
+the state itself: each block builds its env's display list in shared
+memory from the state's tensors and the scene's display program
+(:func:`display_program`, made once per scene and device), so a lo step
+builds nothing on the host and copies nothing from it.  K4 and K5 take
+the list the plain, batched ``build_display_list`` makes (as the JAX
+package builds it in XLA), with per-slot kinds and line widths from
+``static_prim_meta``.  Every kernel computes the camera itself.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from magical_tpu_torch import _build
 from magical_tpu_torch import constants as C
+from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core import collision, preproc, render
 from magical_tpu_torch.core.state import EnvState
 
 MAX_PRIMS = 240         # MAX_PRIMS of csrc/render_lo.cuh
-MAX_BATCH = 65535       # grid.y of K2/K3/K4
+MAX_BATCH = 65535       # grid.y of K4
 
 
 def camera_args(view: str, res: int):
@@ -61,6 +68,104 @@ def camera_args(view: str, res: int):
     bg = [float(x) for x in C.BACKGROUND_COLOUR]
     return [ego, scale, C.ARENA_ZOOM_OUT, npx, npy, res / 384.0,
             2.0 * scale, *bg]
+
+
+# The display program's layout (csrc/render_lo.cuh PI_* / PF_* / OP_* and
+# the TF_* / TI_* tables), checked against render_program_layout.
+PROG_I = 8                    # op, idx, table, k, shape, nv, colour table, kind
+PROG_F = 2 * render.NV + 5    # local verts, radius, line width, colour
+OPS = ('static', 'goal', 'body_poly', 'body_circle', 'eye', 'pupil',
+       'block')
+# what the kernels stage a block by: 32 x 32 pixel tiles (PERF.md)
+LO_TILE = (32, 32)
+
+_PROGRAMS = {}
+
+
+def program_arrays(max_blocks: int, max_goals: int, robot_first: bool,
+                   static_shapes=None):
+    """The display program of a scene, as numpy: per slot of
+    :func:`render.display_slots` one row of `prog_i` (P, PROG_I) int32 and
+    `prog_f` (P, PROG_F) float32, and the shared tables `tab_f` (block
+    sub-shape vertices and radii, outer then inner, and the colour tables
+    goal light, block, block dark) and `tab_i` (sub-shape vertex counts,
+    then whether each sub-shape exists, outer then inner).  Constants are
+    rounded to float32 from the same Python values `build_display_list`
+    rounds."""
+    slots = render.display_slots(max_blocks, max_goals, robot_first,
+                                 static_shapes)
+    meta = render.static_prim_meta(max_blocks, max_goals, robot_first,
+                                   static_shapes)
+    arena_fill, robot = render._static_prims()
+    f32 = np.float32
+    P = len(slots)
+    prog_i = np.zeros((P, PROG_I), np.int32)
+    prog_f = np.zeros((P, PROG_F), np.float32)
+    rr = C.ROBOT_RAD
+    for i, (src, (kind, lw, nv, _, _)) in enumerate(zip(slots, meta)):
+        verts, colour, rad, coltab, idx, table, k, shape = (
+            None, None, 0.0, -1, 0, 0, 0, -1)
+        if src[0] == 'arena':
+            op, verts = 'static', arena_fill
+            colour = [1.0, 1.0, 1.0] if src[1] == 'fill' else C.ARENA_GREY
+        elif src[0] == 'goal':
+            op, idx, coltab = 'goal', src[1], 0 if src[2] == 'fill' else 1
+        elif src[0] == 'finger':
+            _, side, (verts, _), colour = robot[src[1]]
+            op, idx = 'body_poly', 1 + side
+        elif src[0] == 'body':
+            op, colour = 'body_circle', (C.ROBOT_COLOUR_DARK if src[1] ==
+                                         'outer' else C.ROBOT_COLOUR)
+            rad = rr if src[1] == 'outer' else rr - C.ROBOT_LINE_THICKNESS
+        elif src[0] in ('eye', 'pupil'):
+            op, idx = src
+            x_sign = (-1.0, 1.0)[idx]
+            verts = np.zeros((render.NV, 2), np.float32)
+            verts[0] = [x_sign * 0.4 * rr, 0.3 * rr]          # eye centre
+            verts[1] = [0.0, 0.07 * rr]                       # pupil offset
+            rad, colour = ((0.2 * rr, [1.0, 1.0, 1.0]) if op == 'eye'
+                           else (0.12 * rr, [0.1, 0.1, 0.1]))
+        else:
+            _, idx, table, k, sc = src
+            op, coltab = 'block', 2 if table == 0 else 1
+            shape = -1 if sc is None else sc
+        prog_i[i] = [OPS.index(op), idx, table, k, shape,
+                     -1 if nv is None else nv, coltab, kind]
+        if verts is not None:
+            prog_f[i, :2 * render.NV] = np.asarray(verts, f32).reshape(-1)
+        prog_f[i, 2 * render.NV] = f32(rad)
+        prog_f[i, 2 * render.NV + 1] = f32(lw)
+        if colour is not None:
+            prog_f[i, 2 * render.NV + 2:] = np.asarray(colour, f32)
+    tab_f = np.concatenate([np.asarray(x, f32).reshape(-1) for x in (
+        G.BLOCK_VERTS, G.BLOCK_VERTS_INNER, G.BLOCK_SUB_RADIUS,
+        G.BLOCK_SUB_RADIUS_INNER, C.GOAL_COLOURS_LIGHT, C.BLOCK_COLOURS,
+        C.BLOCK_COLOURS_DARK)])
+    tab_i = np.concatenate([np.asarray(x, np.int32).reshape(-1) for x in (
+        G.BLOCK_SUB_NV, G.BLOCK_SUB_NV_INNER, G.BLOCK_SUB_ACTIVE,
+        G.BLOCK_SUB_ACTIVE_INNER)])
+    return prog_i, prog_f, tab_f, tab_i
+
+
+def display_program(max_blocks: int, max_goals: int, robot_first: bool,
+                    static_shapes, device):
+    """:func:`program_arrays` on `device`, made once per scene and device
+    (as ``physics_kernel._tables`` caches K1's tables), so that a render
+    copies nothing from the host."""
+    key = (max_blocks, max_goals, robot_first, static_shapes, str(device))
+    if key not in _PROGRAMS:
+        arrays = program_arrays(max_blocks, max_goals, robot_first,
+                                static_shapes)
+        if torch.device(device).type == 'cuda':
+            out = (ctypes.c_int * 4)()
+            _build.library().render_program_layout(out)
+            want = (PROG_I, PROG_F, arrays[2].size, arrays[3].size)
+            if tuple(out) != want:
+                raise RuntimeError(f'display program layout mismatch: '
+                                   f'kernel {tuple(out)}, python {want}')
+        _PROGRAMS[key] = tuple(torch.from_numpy(x).to(device)
+                               for x in arrays)
+    return _PROGRAMS[key]
 
 
 def kernel_display(state: EnvState, max_blocks: int, max_goals: int,
@@ -170,8 +275,7 @@ def _check(disp, state: EnvState, out: torch.Tensor, res: int):
 
 
 # Each kernel's camera grid, as a multiple of the output resolution.
-_GRID = {'render_lo_frame': 1, 'render_lo_into_slot': 1,
-         'render_hi_frame': 4, 'render_hi_into_slot': 4}
+_GRID = {'render_hi_frame': 4, 'render_hi_into_slot': 4}
 
 
 def _launch(entry: str, disp, state: EnvState, out: torch.Tensor,
@@ -188,21 +292,74 @@ def _launch(entry: str, disp, state: EnvState, out: torch.Tensor,
     _build.check(rc, entry)
 
 
+# The EnvState fields the lo kernels read, with their dtypes.
+_SCENE_FIELDS = (('pos', torch.float32), ('angle', torch.float32),
+                 ('block_shape', torch.int32), ('block_colour', torch.int32),
+                 ('block_active', torch.bool), ('goal_xyhw', torch.float32),
+                 ('goal_colour', torch.int32), ('goal_active', torch.bool))
+
+
+def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
+                  view: str, res: int, tile=LO_TILE):
+    """K2 or K3 (`entry`) on the state itself: the kernel builds each
+    env's display list from `prog` (:func:`display_program`) and the
+    state's tensors, in tiles of `tile` = (rows, cols) pixels."""
+    B, P = state.batch, prog[0].shape[0]
+    if P > MAX_PRIMS:
+        raise ValueError(f'{P} display prims; the kernel takes {MAX_PRIMS}')
+    rows, cols = (int(x) for x in tile)
+    if rows <= 0 or cols <= 0 or B * -(-res // rows) * -(-res // cols) \
+            > 2 ** 31 - 1:
+        raise ValueError(f'tile {tile} at res {res}, batch {B}')
+    fields = [getattr(state, name).contiguous() for name, _ in _SCENE_FIELDS]
+    items = [(name, x, dt) for (name, dt), x in zip(_SCENE_FIELDS, fields)]
+    items += [('program', x, dt) for x, dt in zip(prog, (
+        torch.int32, torch.float32, torch.float32, torch.int32))]
+    items += [('out', out, torch.uint8)]
+    for name, x, dt in items:
+        if x.device != state.device or x.device.type != 'cuda':
+            raise ValueError(f'{name} is on {x.device}; the kernel takes '
+                             f'CUDA tensors on {state.device}')
+        if x.dtype != dt:
+            raise TypeError(f'{name} has dtype {x.dtype}, kernel takes {dt}')
+    if tuple(out.shape) != (B, res, res, 3) or not out.is_contiguous():
+        raise ValueError(f'out has shape {tuple(out.shape)}, kernel takes '
+                         f'a contiguous {(B, res, res, 3)}')
+    ptrs = [x.data_ptr() for x in fields + list(prog) + [out]]
+    ints = [B, P, res, state.n_bodies, state.max_blocks,
+            state.goal_xyhw.shape[1]]
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = getattr(_build.library(), entry)(
+        *ptrs, *ints, *camera_args(view, res), rows, cols, stream)
+    _build.check(rc, entry)
+
+
 def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
            res: int, views, static_shapes, *extra):
     """Fresh frames through kernel entry point `entry` (given `extra`
     arguments), counted on `wrapper`; on a CPU state, the plain render at
-    `fidelity`.  `scene` is (max_blocks, max_goals, robot_first)."""
+    `fidelity`.  `scene` is (max_blocks, max_goals, robot_first).  K3
+    builds its display list on the card from the state; K4 and K5 take
+    the batched list of :func:`kernel_display`."""
     if state.device.type == 'cpu':
         return render.render_views(state, *scene, res=res, views=views,
                                    fidelity=fidelity,
                                    static_shapes=static_shapes)
-    disp = kernel_display(state, *scene, static_shapes)
+    if entry == 'render_lo_frame':
+        prog = display_program(*scene, static_shapes, state.device)
+
+        def launch(frame, view):
+            _launch_scene(entry, prog, state, frame, view, res)
+    else:
+        disp = kernel_display(state, *scene, static_shapes)
+
+        def launch(frame, view):
+            _launch(entry, disp, state, frame, view, res, *extra)
     out = {}
     for view in views:
         frame = torch.empty((state.batch, res, res, 3), dtype=torch.uint8,
                             device=state.device)
-        _launch(entry, disp, state, frame, view, res, *extra)
+        launch(frame, view)
         wrapper.launches += 1
         out[view] = frame
     return out
@@ -211,19 +368,30 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 rings: dict, t: int, scene, spec, res: int, static_shapes):
     """Step-`t` frames into their ring slots through `entry`, counted on
-    `wrapper`; on a CPU state, the plain render copied in."""
+    `wrapper`; on a CPU state, the plain render copied in.  K2 builds its
+    display list on the card from the state; K4 takes
+    :func:`kernel_display`'s."""
     if state.device.type == 'cpu':
         return preproc.push_frames_cf(spec, rings, render.render_views(
             state, *scene, res=res, views=spec.views, fidelity=fidelity,
             static_shapes=static_shapes), t)
-    disp = kernel_display(state, *scene, static_shapes)
+    if entry == 'render_lo_into_slot':
+        prog = display_program(*scene, static_shapes, state.device)
+
+        def launch(slot, view):
+            _launch_scene(entry, prog, state, slot, view, res)
+    else:
+        disp = kernel_display(state, *scene, static_shapes)
+
+        def launch(slot, view):
+            _launch(entry, disp, state, slot, view, res)
     for view in spec.views:
         ring = rings[view]
         depth = spec.depth(view)
         if ring.dim() != 5 or ring.shape[0] != depth:
             raise ValueError(f'{view} ring has shape {tuple(ring.shape)}, '
                              f'want ({depth}, B, {res}, {res}, 3)')
-        _launch(entry, disp, state, ring[t % depth], view, res)
+        launch(ring[t % depth], view)
         wrapper.launches += 1
     return rings
 

@@ -1,9 +1,9 @@
 // The launch of the control-step kernel (physics_step.cu has its note)
 // and its C entry point, as a macro that a source instantiates for one
 // block count: PHYSICS_CONTROL_STEP(MB) defines physics_control_step_mb<MB>,
-// which launches control_step_kernel<MB> on every env of the batch.  One
-// source per block count, so that _build.py compiles the instantiations
-// side by side (ptxas takes tens of seconds over each of the wide ones).
+// which launches control_step_kernel<MB> on every env of the batch, a warp
+// an env.  One source per block count, so that _build.py compiles the
+// instantiations side by side.
 
 #pragma once
 
@@ -13,11 +13,25 @@
 
 namespace magical {
 
+// Envs (warps) a block: as many WarpEnv states as fit the 48 KB of shared
+// memory a block takes without opting in, at most 4 (MB = 1: 4, MB = 10:
+// 1); an SM then holds several blocks.
+template <int MB>
+constexpr int envs_per_block() {
+  return sizeof(WarpEnv<MB>) > 48 * 1024 ? 1
+         : 48 * 1024 / sizeof(WarpEnv<MB>) < 4
+             ? (int)(48 * 1024 / sizeof(WarpEnv<MB>))
+             : 4;
+}
+
 template <int MB>
 __global__ void control_step_kernel(Args a) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.B) return;                  // ragged edge
-  control_step_env<MB>(a, b);
+  extern __shared__ unsigned char smem[];
+  const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * (blockDim.x / LANES) + warp;
+  if (b >= a.B) return;                  // ragged edge: whole warps
+  WarpEnv<MB>* envs = reinterpret_cast<WarpEnv<MB>*>(smem);
+  control_step_warp<MB>(a, b, envs[warp], lane);
 }
 
 template <int MB>
@@ -28,7 +42,7 @@ int launch_control_step(
     const void* block_active, const void* phys, void* con_id, void* con_jn,
     void* con_jt, void* joint_acc, void* t, const void* action,
     const void* ftab, const void* itab, int B, int mb, int phys_steps,
-    int iterations, void* stream) {
+    int iterations, void* phase_clock, void* stream) {
   if (mb != MB) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<float*>(pos);
@@ -54,11 +68,19 @@ int launch_control_step(
   a.B = B;
   a.phys_steps = phys_steps;
   a.iterations = iterations;
+  a.phase_clock = static_cast<long long*>(phase_clock);
   if (B <= 0) return 0;
-  const int threads = 128;
-  dim3 grid((B + threads - 1) / threads);
+  constexpr int envs = envs_per_block<MB>();
+  constexpr size_t smem = envs * sizeof(WarpEnv<MB>);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        control_step_kernel<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((B + envs - 1) / envs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  control_step_kernel<MB><<<grid, threads, 0, s>>>(a);
+  control_step_kernel<MB><<<grid, envs * LANES, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -71,12 +93,13 @@ int launch_control_step(
       const void *block_active, const void *phys, void *con_id,             \
       void *con_jn, void *con_jt, void *joint_acc, void *t,                 \
       const void *action, const void *ftab, const void *itab, int B,        \
-      int mb, int phys_steps, int iterations, void *stream
+      int mb, int phys_steps, int iterations, void *phase_clock,           \
+      void *stream
 #define PHYSICS_PASS                                                         \
   pos, angle, vel, omega, v_bias, w_bias, target_speed, rel_turn_angle,     \
       target_finger_angle, block_shape, block_active, phys, con_id, con_jn, \
       con_jt, joint_acc, t, action, ftab, itab, B, mb, phys_steps,          \
-      iterations, stream
+      iterations, phase_clock, stream
 
 // The C entry point physics_control_step_mb<MB>; `mb` must equal MB.
 #define PHYSICS_CONTROL_STEP(MB)                                      \

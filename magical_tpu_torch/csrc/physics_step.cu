@@ -12,31 +12,28 @@
 //
 // What bounds it on the H100: latency of dependent scalar float math.  A
 // step is ~100 sequential solver sweeps over a few dozen contacts per env,
-// and every env is independent; the state is a few hundred bytes per env,
-// so device memory traffic is negligible.  The design: one thread per env,
-// all of its bodies, contacts and accumulators in registers and local
-// memory, no shared memory, no synchronisation.  At 4096 envs that is 32
-// blocks of 128 threads on 132 SMs, so most of the card idles; whether a
-// warp per env, with contacts spread across lanes, pays is left to a later
-// change.
+// and every env is independent; the state is a few hundred bytes per env
+// in device memory, so its traffic is negligible.  One thread per env
+// would leave most of the card idle (32 blocks of 128 threads at 4096 envs
+// on 132 SMs) and, from MB = 3 on, spill its 12-30 KB of per-env state to
+// local memory.
 //
-// The kernel is instantiated for every block count of the task families:
-// MB = 1 here, MB = 3, 4, 7, 8 and 10 in physics_step_mb<MB>.cu, one
-// source each so that nvcc builds them side by side; the launch and the C
-// entry point are in physics_entry.cuh.  The per-env state grows with MB:
-// at MB = 10 a thread holds 65 sub-shape slots and 24 arrays of 192
-// contacts in a 30 KB stack frame (7 KB at MB = 1), with 255 registers and
-// spills from MB = 3 on (ptxas -v, which the build's verbose mode writes to
-// build.log), and walks 1920 sub-shape pairs per substep against 30.  On
-// the H100 at 4096 envs that costs ~13 ms a step at MB = 10 on Demo
-// states and ~90 ms on ClusterColour-TestAll states, whose many contacts
-// and mixed shapes lengthen each thread's loops (PERF.md): still one
-// thread per env, latency-bound, far from the card's limits.
-//
-// The kernel updates the state tensors in place.  The per-env arithmetic
-// lives in __host__ __device__ functions that follow core/physics.py
-// operation for operation, so that the two agree to rounding.
-
+// The design: one warp per env, its state in shared memory (WarpEnv in
+// physics_step.cuh: bodies, sub-shape slots, contacts, caches; ~31 KB at
+// MB = 10, ~8 KB at MB = 1), as many envs a block as fit 48 KB, so 4096
+// envs are 1,024 to 4,096 blocks.  The lanes share each phase
+// (control_step_warp): the slots; the narrowphase over the candidates of
+// active slots only (a ClusterColour-Demo env has 213 of its 1920
+// sub-shape pairs), listed once per control step, each lane's contacts
+// placed after those of the lanes before it by a prefix count, never an
+// atomic, so the contact list, its MAXC cut and the warm start are the
+// sequential ones; the contact prestep, warm start and Jacobi sweep, a
+// contact a lane; the per-body impulse sums, a lane per (side, body), each
+// summing in contact order as the plain version does; the block dampers,
+// a block a lane.  The robot's Gauss-Seidel joints stay on lane 0, in
+// their order.  So the kernel gives the bits of the sequential control
+// step, run after run; the host build of the tests runs each phase lane
+// by lane.
 #include "physics_entry.cuh"
 
 using namespace magical;

@@ -1,5 +1,6 @@
 // Per-env arithmetic of the MAGICAL control-step kernel
-// (physics_step.cu): narrowphase, compaction, contact and joint solve.
+// (physics_step.cu): narrowphase, compaction, contact and joint solve,
+// and the phases in which one warp's lanes share an env's control step.
 // Plain C++ in __host__ __device__ functions, so that it also builds
 // for the host.
 
@@ -71,6 +72,7 @@ struct Args {
   int B;
   int phys_steps;
   int iterations;
+  long long* phase_clock;  // (B, N_PHASES) cycles a phase, or null
 };
 
 __host__ __device__ inline float cross2(float ax, float ay, float bx,
@@ -327,11 +329,44 @@ __host__ __device__ void wall_contacts(const Poly& p, float wnx, float wny,
 }
 
 // ---------------------------------------------------------------------------
-// One env's control step (core/physics.py)
+// One env's control step (core/physics.py), on one warp
 // ---------------------------------------------------------------------------
 
+// One env's control step runs on the LANES threads of one warp, its state
+// in shared memory (WarpEnv).  WARP_PHASE(...) runs a phase: on the card
+// every lane runs the statement with its own `lane`, then the warp syncs;
+// in a host build one thread runs it for each lane in turn, which is the
+// same thing, since within a phase no lane reads what another lane writes.
+constexpr int LANES = 32;
+#ifdef __CUDA_ARCH__
+#define WARP_PHASE(...) \
+  do {                  \
+    __VA_ARGS__;        \
+    __syncwarp();       \
+  } while (0)
+#else
+#define WARP_PHASE(...)                                  \
+  do {                                                   \
+    for (int lane = 0; lane < LANES; ++lane) {           \
+      __VA_ARGS__;                                       \
+    }                                                    \
+  } while (0)
+#endif
+
+// Phases whose clock64() cycles the kernel can count per env
+// (Args::phase_clock): where a control step's time goes.
+enum {
+  PH_NARROW,    // slots and narrowphase (build_slots, collide)
+  PH_PRESTEP,   // contact and joint prestep, warm start
+  PH_SWEEP,     // the Jacobi contact sweep of each solver iteration
+  PH_APPLY,     // the per-body impulse sums of each sweep
+  PH_JOINTS,    // the robot's Gauss-Seidel joints and the block dampers
+  PH_OTHER,     // load, store, integration, cache clearing
+  N_PHASES
+};
+
 template <int MB>
-struct Env {
+struct WarpEnv {
   static constexpr int NB = NROBOT + MB;
   static constexpr int NBP = NB + 1;           // + the static wall body
   static constexpr int NS = 5 + KSUB * MB;
@@ -339,65 +374,95 @@ struct Env {
   static constexpr int KC = 8 * NS + 2 * NP;
   static constexpr int MAXC = 32 + 16 * MB;
   static constexpr int NJ = 9 + 3 * MB;
+  static constexpr int NITEM = 4 * NS + NP;    // wall candidates + pairs
+  static_assert(NBP <= LANES / 2, "apply takes a lane per (side, body)");
+  static_assert(KC < 65536, "candidate ids are stored in 16 bits");
 
   // bodies (index NB is the static wall body: zero pose, zero inverse mass)
-  float px[NBP], py[NBP], ang[NB];
+  float px[NBP], py[NBP], ang[NBP];
   float vx[NBP], vy[NBP], w[NBP];
   float vbx[NBP], vby[NBP], wb[NBP];
   float inv_m[NBP], inv_i[NBP];
-  float ts, tt, tf;          // action targets
-  float phys[5];
+  float deg[NBP];                  // contacts a body takes part in, >= 1
+  float part[2][LANES / 2][6];     // apply's sums: [side][body][6]
   int shape[MB];
   bool bactive[MB];
 
-  // warm-start caches
-  int nc;
-  int cid[MAXC];
-  float jn[MAXC], jt[MAXC];
+  // the robot's control, lane 0's (Robot.update, the joint prestep)
+  float ts, tt, tf;                // action targets
+  float phys[5];
+  float control_angle, cvx, cvy, motor_rate[2];
+  float gear_bias, eye_wcoef;
+  float pin_nx[2], pin_ny[2], pin_r1x[2], pin_r1y[2], pin_nmass[2];
+  float pin_bias[2], limit_bias[2];
+  float pivot_jmax, gear_jmax, motor_jmax, bp_jmax, bg_jmax;
   float jacc[NJ];
 
-  // compacted contacts of the current substep
-  int ia[MAXC], ib[MAXC];
-  float ptx[MAXC], pty[MAXC], cnx[MAXC], cny[MAXC], cd[MAXC], cu[MAXC];
+  // compacted contacts of the current substep, and the caches
+  int nc, nc_next;
+  int cid[MAXC], ia[MAXC], ib[MAXC];
+  float cnx[MAXC], cny[MAXC], cu[MAXC], bias[MAXC];
   float r1x[MAXC], r1y[MAXC], r2x[MAXC], r2y[MAXC];
-  float nmass[MAXC], tmass[MAXC], bias[MAXC];
-  float ima[MAXC], imb[MAXC], iia[MAXC], iib[MAXC];
-  float jb[MAXC];
+  float nmass[MAXC], tmass[MAXC];
+  float jn[MAXC], jt[MAXC], jb[MAXC];
+  float djx[MAXC], djy[MAXC], dbx[MAXC], dby[MAXC];
+  int old_id[MAXC];
+  float old_jn[MAXC], old_jt[MAXC];
 
+  // narrowphase: world geometry, the candidates of active slots (the
+  // first candidate id of each, in candidate order), a lane's results
   Poly slots[NS];
+  bool sact[NS];                   // slot active (for the whole step)
+  int n_items, n_items_next;
+  unsigned short items[NITEM];
+  int item_on[LANES];
+  Contact2 stage[LANES];
+  int stage_k[LANES];
 
-  __host__ __device__ void load(const Args& a, int b) {
-    const float* ft = a.tab.f;
-    for (int k = 0; k < NB; ++k) {
-      px[k] = a.pos[(b * NB + k) * 2];
-      py[k] = a.pos[(b * NB + k) * 2 + 1];
-      ang[k] = a.angle[b * NB + k];
-      vx[k] = a.vel[(b * NB + k) * 2];
-      vy[k] = a.vel[(b * NB + k) * 2 + 1];
-      w[k] = a.omega[b * NB + k];
-      vbx[k] = a.v_bias[(b * NB + k) * 2];
-      vby[k] = a.v_bias[(b * NB + k) * 2 + 1];
-      wb[k] = a.w_bias[b * NB + k];
-    }
-    px[NB] = py[NB] = vx[NB] = vy[NB] = w[NB] = 0.0f;
-    vbx[NB] = vby[NB] = wb[NB] = 0.0f;
-    for (int k = 0; k < MB; ++k) {
-      shape[k] = a.block_shape[b * MB + k];
-      bactive[k] = a.block_active[b * MB + k] != 0;
-    }
-    for (int k = 0; k < 5; ++k) phys[k] = a.phys[b * 5 + k];
-    // inverse masses (core/state.py inv_mass_arrays)
-    for (int k = 0; k < NROBOT; ++k) {
+  // ---- per-lane pieces of the phases -------------------------------------
+
+  __host__ __device__ void load_body(const Args& a, int b, int k) {
+    px[k] = a.pos[(b * NB + k) * 2];
+    py[k] = a.pos[(b * NB + k) * 2 + 1];
+    ang[k] = a.angle[b * NB + k];
+    vx[k] = a.vel[(b * NB + k) * 2];
+    vy[k] = a.vel[(b * NB + k) * 2 + 1];
+    w[k] = a.omega[b * NB + k];
+    vbx[k] = a.v_bias[(b * NB + k) * 2];
+    vby[k] = a.v_bias[(b * NB + k) * 2 + 1];
+    wb[k] = a.w_bias[b * NB + k];
+  }
+
+  __host__ __device__ void store_body(const Args& a, int b, int k) const {
+    a.pos[(b * NB + k) * 2] = px[k];
+    a.pos[(b * NB + k) * 2 + 1] = py[k];
+    a.angle[b * NB + k] = ang[k];
+    a.vel[(b * NB + k) * 2] = vx[k];
+    a.vel[(b * NB + k) * 2 + 1] = vy[k];
+    a.omega[b * NB + k] = w[k];
+    a.v_bias[(b * NB + k) * 2] = vbx[k];
+    a.v_bias[(b * NB + k) * 2 + 1] = vby[k];
+    a.w_bias[b * NB + k] = wb[k];
+  }
+
+  // Inverse masses (core/state.py inv_mass_arrays) of body k.
+  __host__ __device__ void masses(const Tables& tab, int k) {
+    const float* ft = tab.f;
+    if (k < NROBOT) {
       inv_m[k] = ft[FT_INV_M_ROBOT + k];
       inv_i[k] = ft[FT_INV_I_ROBOT + k];
+    } else if (k < NB) {
+      float act = bactive[k - NROBOT] ? 1.0f : 0.0f;
+      inv_m[k] = act / ft[FT_SCALARS + SC_SHAPE_MASS];
+      inv_i[k] = act / ft[FT_BLOCK_MOMENT + shape[k - NROBOT]];
+    } else {
+      inv_m[k] = inv_i[k] = 0.0f;
     }
-    for (int k = 0; k < MB; ++k) {
-      float act = bactive[k] ? 1.0f : 0.0f;
-      inv_m[NROBOT + k] = act / ft[FT_SCALARS + SC_SHAPE_MASS];
-      inv_i[NROBOT + k] = act / ft[FT_BLOCK_MOMENT + shape[k]];
-    }
-    inv_m[NB] = inv_i[NB] = 0.0f;
-    // action targets (Robot.set_action)
+  }
+
+  // Action targets (Robot.set_action), lane 0.
+  __host__ __device__ void targets(const Args& a, int b) {
+    const float* ft = a.tab.f;
     int act = a.action[b];
     ts = ft[FT_ACT_SPEED + act];
     tt = ft[FT_ACT_TURN + act];
@@ -405,255 +470,195 @@ struct Env {
     a.target_speed[b] = ts;
     a.rel_turn_angle[b] = tt;
     a.target_finger_angle[b] = tf;
-    // caches
-    nc = 0;
-    for (int m = 0; m < MAXC; ++m) {
-      cid[m] = a.con_id[b * MAXC + m];
-      jn[m] = a.con_jn[b * MAXC + m];
-      jt[m] = a.con_jt[b * MAXC + m];
-    }
-    for (int k = 0; k < NJ; ++k) jacc[k] = a.joint_acc[b * NJ + k];
+    for (int k = 0; k < 5; ++k) phys[k] = a.phys[b * 5 + k];
   }
 
-  __host__ __device__ void store(const Args& a, int b) const {
-    for (int k = 0; k < NB; ++k) {
-      a.pos[(b * NB + k) * 2] = px[k];
-      a.pos[(b * NB + k) * 2 + 1] = py[k];
-      a.angle[b * NB + k] = ang[k];
-      a.vel[(b * NB + k) * 2] = vx[k];
-      a.vel[(b * NB + k) * 2 + 1] = vy[k];
-      a.omega[b * NB + k] = w[k];
-      a.v_bias[(b * NB + k) * 2] = vbx[k];
-      a.v_bias[(b * NB + k) * 2 + 1] = vby[k];
-      a.w_bias[b * NB + k] = wb[k];
-    }
-    for (int m = 0; m < MAXC; ++m) {
-      a.con_id[b * MAXC + m] = cid[m];
-      a.con_jn[b * MAXC + m] = jn[m];
-      a.con_jt[b * MAXC + m] = jt[m];
-    }
-    for (int k = 0; k < NJ; ++k) a.joint_acc[b * NJ + k] = jacc[k];
-    a.t[b] = a.t[b] + 1;
+  __host__ __device__ bool slot_active(const Tables& tab, int s) const {
+    if (s < 5) return true;
+    int bi = (s - 5) / KSUB, k = (s - 5) % KSUB;
+    return tab.i[IT_BLOCK_ACTIVE + shape[bi] * KSUB + k] != 0 && bactive[bi];
   }
 
-  // Per-slot world geometry (physics.py slot_geometry + transform_verts).
-  __host__ __device__ void build_slots(const Tables& tab) {
-    const float* ft = tab.f;
-    const int* it = tab.i;
-    for (int s = 0; s < NS; ++s) {
-      Poly& p = slots[s];
-      float lv[NV][2];
-      if (s < 5) {
-        for (int v = 0; v < NV; ++v) {
-          lv[v][0] = ft[FT_ROBOT_VERTS + (s * NV + v) * 2];
-          lv[v][1] = ft[FT_ROBOT_VERTS + (s * NV + v) * 2 + 1];
-        }
-        p.nv = it[IT_ROBOT_NV + s];
-        p.rad = ft[FT_ROBOT_RAD + s];
-        p.active = true;
-      } else {
-        int bi = (s - 5) / KSUB, k = (s - 5) % KSUB;
-        int tk = shape[bi] * KSUB + k;
-        for (int v = 0; v < NV; ++v) {
-          lv[v][0] = ft[FT_BLOCK_VERTS + (tk * NV + v) * 2];
-          lv[v][1] = ft[FT_BLOCK_VERTS + (tk * NV + v) * 2 + 1];
-        }
-        p.nv = it[IT_BLOCK_NV + tk];
-        p.rad = ft[FT_BLOCK_RAD + tk];
-        p.active = it[IT_BLOCK_ACTIVE + tk] != 0 && bactive[bi];
-      }
-      int body = it[IT_SLOT_BODY + s];
-      float c = cosf(ang[body]), sn = sinf(ang[body]);
-      for (int v = 0; v < NV; ++v) {
-        p.v[v][0] = c * lv[v][0] - sn * lv[v][1] + px[body];
-        p.v[v][1] = sn * lv[v][0] + c * lv[v][1] + py[body];
-      }
+  // The narrowphase's items: the candidates whose slots are active, in
+  // candidate order.  A ClusterColour-Demo env has 213 of its 1920
+  // sub-shape pairs, so the lanes walk this list, not all pairs.  Slot
+  // activity holds for the whole control step, so the list is made once
+  // per step, 32 candidates at a time: item c is the walls' candidate
+  // (c / NS, c % NS) for c < 4 NS, else pair c - 4 NS, and its first
+  // contact's candidate id is 2 c either way.
+  __host__ __device__ void flag_item(const Tables& tab, int c, int l) {
+    bool on = false;
+    if (c < 4 * NS) {
+      on = sact[c % NS];
+    } else if (c < NITEM) {
+      const int i = c - 4 * NS;
+      on = sact[tab.i[IT_SLOT_BODY + NS + i]] &&
+           sact[tab.i[IT_SLOT_BODY + NS + NP + i]];
     }
+    item_on[l] = on;
   }
 
-  __host__ __device__ void push(int k, const Contact2& c, int p,
-                                const Tables& tab) {
-    if (!c.valid[p] || nc >= MAXC) return;   // later valid ones dropped
-    const int* it = tab.i;
-    const int cand_a = IT_SLOT_BODY + NS + 2 * NP;
-    int m = nc++;
-    cid[m] = k;
-    ia[m] = it[cand_a + k];
-    ib[m] = it[cand_a + KC + k];
-    cu[m] = tab.f[FT_CAND_FRICTION + k];
-    ptx[m] = c.pt[p][0];
-    pty[m] = c.pt[p][1];
-    cnx[m] = c.n[0];
-    cny[m] = c.n[1];
-    cd[m] = c.d[p];
+  // Lane l's item of the chunk from candidate `base`, after the items of
+  // lanes < l; lane 0 also counts the chunk's.
+  __host__ __device__ void place_item(int base, int l) {
+    int at = n_items, total = 0;
+    for (int o = 0; o < LANES; ++o) {
+      if (o < l) at += item_on[o];
+      total += item_on[o];
+    }
+    if (item_on[l]) items[at] = (unsigned short)(2 * (base + l));
+    if (l == 0) n_items_next = n_items + total;
   }
 
-  // Narrowphase over the flat candidate list + stable compaction.  The
-  // previous caches move to (old_*) for the warm-start match.
-  __host__ __device__ void collide(const Tables& tab, int* old_id,
-                                   float* old_jn, float* old_jt) {
-    const int* it = tab.i;
-    for (int m = 0; m < MAXC; ++m) {
-      old_id[m] = cid[m];
-      old_jn[m] = jn[m];
-      old_jt[m] = jt[m];
-    }
-    nc = 0;
-    const float wn[4][2] = {{1.f, 0.f}, {-1.f, 0.f}, {0.f, 1.f}, {0.f, -1.f}};
-    Contact2 c;
-    for (int wi = 0; wi < 4; ++wi) {
-      for (int s = 0; s < NS; ++s) {
-        if (!slots[s].active) continue;
-        wall_contacts(slots[s], wn[wi][0], wn[wi][1], -1.0f, c);
-        for (int p = 0; p < 2; ++p) push((wi * NS + s) * 2 + p, c, p, tab);
-      }
-    }
-    for (int i = 0; i < NP; ++i) {
-      int sa = it[IT_SLOT_BODY + NS + i];
-      int sb = it[IT_SLOT_BODY + NS + NP + i];
-      if (!(slots[sa].active && slots[sb].active)) continue;
-      pair_contacts(slots[sa], slots[sb], c);
-      for (int p = 0; p < 2; ++p) push(8 * NS + 2 * i + p, c, p, tab);
-    }
-  }
-
-  // cpArbiterPreStep with mass-splitting stiffness (_contact_prestep).
-  __host__ __device__ void contact_prestep(const Tables& tab) {
-    const float* ft = tab.f;
-    float deg[NBP];
-    for (int k = 0; k < NBP; ++k) deg[k] = 0.0f;
-    for (int m = 0; m < nc; ++m) deg[ia[m]] += 1.0f;
-    for (int m = 0; m < nc; ++m) deg[ib[m]] += 1.0f;
-    for (int k = 0; k < NBP; ++k) deg[k] = fmaxf(deg[k], 1.0f);
-    float coef = ft[FT_SCALARS + SC_BIAS_COEF];
-    float slop = ft[FT_SCALARS + SC_SLOP];
-    float dt = ft[FT_SCALARS + SC_DT];
-    for (int m = 0; m < nc; ++m) {
-      int a = ia[m], b = ib[m];
-      r1x[m] = ptx[m] - px[a];
-      r1y[m] = pty[m] - py[a];
-      r2x[m] = ptx[m] - px[b];
-      r2y[m] = pty[m] - py[b];
-      float sma = inv_m[a] * deg[a], smb = inv_m[b] * deg[b];
-      float sia = inv_i[a] * deg[a], sib = inv_i[b] * deg[b];
-      float nx = cnx[m], ny = cny[m];
-      float rn1 = cross2(r1x[m], r1y[m], nx, ny);
-      float rn2 = cross2(r2x[m], r2y[m], nx, ny);
-      float kn = sma + smb + sia * (rn1 * rn1) + sib * (rn2 * rn2);
-      float rt1 = cross2(r1x[m], r1y[m], -ny, nx);
-      float rt2 = cross2(r2x[m], r2y[m], -ny, nx);
-      float kt = sma + smb + sia * (rt1 * rt1) + sib * (rt2 * rt2);
-      nmass[m] = 1.0f / fmaxf(kn, 1e-12f);
-      tmass[m] = 1.0f / fmaxf(kt, 1e-12f);
-      bias[m] = -coef * fminf(cd[m] + slop, 0.0f) / dt;
-      // impulses use the TRUE inverse masses
-      ima[m] = inv_m[a];
-      imb[m] = inv_m[b];
-      iia[m] = inv_i[a];
-      iib[m] = inv_i[b];
-    }
-  }
-
-  // Add per-contact impulses (dx, dy) to (ux, uy, uw): -dj on A, +dj on B,
-  // per-body sums taken in contact order, A side then B side.
-  __host__ __device__ void apply(const float* djx, const float* djy,
-                                 float* ux, float* uy, float* uw) const {
-    float ax[NBP], ay[NBP], aw[NBP], bx[NBP], by[NBP], bw[NBP];
-    for (int k = 0; k < NBP; ++k)
-      ax[k] = ay[k] = aw[k] = bx[k] = by[k] = bw[k] = 0.0f;
-    for (int m = 0; m < nc; ++m) {
-      ax[ia[m]] += -djx[m] * ima[m];
-      ay[ia[m]] += -djy[m] * ima[m];
-      bx[ib[m]] += djx[m] * imb[m];
-      by[ib[m]] += djy[m] * imb[m];
-      aw[ia[m]] += -iia[m] * cross2(r1x[m], r1y[m], djx[m], djy[m]);
-      bw[ib[m]] += iib[m] * cross2(r2x[m], r2y[m], djx[m], djy[m]);
-    }
-    for (int k = 0; k < NBP; ++k) {
-      ux[k] = ux[k] + ax[k] + bx[k];
-      uy[k] = uy[k] + ay[k] + by[k];
-      uw[k] = uw[k] + aw[k] + bw[k];
-    }
-  }
-
-  // One mass-splitting Jacobi sweep (_contact_iteration): every contact
-  // reads the same pre-sweep velocities.
-  __host__ __device__ void contact_iteration() {
-    float djx[MAXC], djy[MAXC], dbx[MAXC], dby[MAXC];
-    for (int m = 0; m < nc; ++m) {
-      int a = ia[m], b = ib[m];
-      float nx = cnx[m], ny = cny[m];
-      float vb1x = vbx[a] + (-r1y[m]) * wb[a];
-      float vb1y = vby[a] + r1x[m] * wb[a];
-      float vb2x = vbx[b] + (-r2y[m]) * wb[b];
-      float vb2y = vby[b] + r2x[m] * wb[b];
-      float vbn = (vb2x - vb1x) * nx + (vb2y - vb1y) * ny;
-      float jbn = (bias[m] - vbn) * nmass[m];
-      float jb_new = fmaxf(jb[m] + jbn, 0.0f);
-      float djb = jb_new - jb[m];
-      dbx[m] = djb * nx;
-      dby[m] = djb * ny;
-      jb[m] = jb_new;
-
-      float vr1x = vx[a] + (-r1y[m]) * w[a];
-      float vr1y = vy[a] + r1x[m] * w[a];
-      float vr2x = vx[b] + (-r2y[m]) * w[b];
-      float vr2y = vy[b] + r2x[m] * w[b];
-      float vrx = vr2x - vr1x, vry = vr2y - vr1y;
-      float vrn = vrx * nx + vry * ny;
-      float jnv = -vrn * nmass[m];          // bounce = 0 (elasticity 0)
-      float jn_new = fmaxf(jn[m] + jnv, 0.0f);
-      float jt_max = cu[m] * jn_new;
-      float vrt = vrx * (-ny) + vry * nx;
-      float jtv = -vrt * tmass[m];
-      float jt_new = fminf(fmaxf(jt[m] + jtv, -jt_max), jt_max);
-      float dn = jn_new - jn[m], dtg = jt_new - jt[m];
-      djx[m] = dn * nx + dtg * (-ny);
-      djy[m] = dn * ny + dtg * nx;
-      jn[m] = jn_new;
-      jt[m] = jt_new;
-    }
-    apply(djx, djy, vx, vy, w);
-    apply(dbx, dby, vbx, vby, wb);
-  }
-
-  __host__ __device__ void substep(const Tables& tab, int iterations) {
-    const float* ft = tab.f;
-    const float dt = ft[FT_SCALARS + SC_DT];
-
-    // ---- Robot.update, BEFORE integration --------------------------------
+  // Robot.update, BEFORE integration, lane 0.
+  __host__ __device__ void robot_update() {
     float a0 = ang[0];
-    float control_angle = a0 + tt;
-    float cvx = ts * -sinf(a0), cvy = ts * cosf(a0);
-    float motor_rate[2];
+    control_angle = a0 + tt;
+    cvx = ts * -sinf(a0);
+    cvy = ts * cosf(a0);
     for (int side = 0; side < 2; ++side) {
       float rel = ang[1 + side] - a0;
       float err = rel + (side == 0 ? -tf : tf);
       float r = clampf(err * 10.0f, -1.0f, 1.0f);
       motor_rate[side] = fabsf(r) < 1e-4f ? 0.0f : r;
     }
+  }
 
-    // ---- integrate positions (cpBodyUpdatePosition) ----------------------
-    for (int k = 0; k < NB; ++k) {
-      px[k] = px[k] + (vx[k] + vbx[k]) * dt;
-      py[k] = py[k] + (vy[k] + vby[k]) * dt;
-      ang[k] = ang[k] + (w[k] + wb[k]) * dt;
+  // cpBodyUpdatePosition of body k.
+  __host__ __device__ void integrate(float dt, int k) {
+    px[k] = px[k] + (vx[k] + vbx[k]) * dt;
+    py[k] = py[k] + (vy[k] + vby[k]) * dt;
+    ang[k] = ang[k] + (w[k] + wb[k]) * dt;
+  }
+
+  // World geometry of slot s (physics.py slot_geometry + transform_verts).
+  __host__ __device__ void build_slot(const Tables& tab, int s) {
+    const float* ft = tab.f;
+    const int* it = tab.i;
+    Poly& p = slots[s];
+    float lv[NV][2];
+    if (s < 5) {
+      for (int v = 0; v < NV; ++v) {
+        lv[v][0] = ft[FT_ROBOT_VERTS + (s * NV + v) * 2];
+        lv[v][1] = ft[FT_ROBOT_VERTS + (s * NV + v) * 2 + 1];
+      }
+      p.nv = it[IT_ROBOT_NV + s];
+      p.rad = ft[FT_ROBOT_RAD + s];
+    } else {
+      int bi = (s - 5) / KSUB, k = (s - 5) % KSUB;
+      int tk = shape[bi] * KSUB + k;
+      for (int v = 0; v < NV; ++v) {
+        lv[v][0] = ft[FT_BLOCK_VERTS + (tk * NV + v) * 2];
+        lv[v][1] = ft[FT_BLOCK_VERTS + (tk * NV + v) * 2 + 1];
+      }
+      p.nv = it[IT_BLOCK_NV + tk];
+      p.rad = ft[FT_BLOCK_RAD + tk];
     }
+    p.active = sact[s];
+    int body = it[IT_SLOT_BODY + s];
+    float c = cosf(ang[body]), sn = sinf(ang[body]);
+    for (int v = 0; v < NV; ++v) {
+      p.v[v][0] = c * lv[v][0] - sn * lv[v][1] + px[body];
+      p.v[v][1] = sn * lv[v][0] + c * lv[v][1] + py[body];
+    }
+  }
 
-    // ---- narrowphase + contact prestep ------------------------------------
-    int old_id[MAXC];
-    float old_jn[MAXC], old_jt[MAXC];
-    build_slots(tab);
-    collide(tab, old_id, old_jn, old_jt);
-    contact_prestep(tab);
+  // Narrowphase of item j into stage[l]: a slot against a wall half-plane
+  // {x : dot(n, x) >= -1}, or a sub-shape pair.
+  __host__ __device__ void narrow(const Tables& tab, int j, int l) {
+    Contact2& c = stage[l];
+    if (j >= n_items) {
+      c.valid[0] = c.valid[1] = false;
+      return;
+    }
+    const int k0 = items[j];
+    stage_k[l] = k0;
+    if (k0 < 8 * NS) {
+      const float wn[4][2] = {{1.f, 0.f}, {-1.f, 0.f}, {0.f, 1.f},
+                              {0.f, -1.f}};
+      const int wi = k0 / 2 / NS, s = k0 / 2 % NS;
+      wall_contacts(slots[s], wn[wi][0], wn[wi][1], -1.0f, c);
+    } else {
+      const int i = (k0 - 8 * NS) / 2;
+      pair_contacts(slots[tab.i[IT_SLOT_BODY + NS + i]],
+                    slots[tab.i[IT_SLOT_BODY + NS + NP + i]], c);
+    }
+  }
 
-    // ---- joint prestep ----------------------------------------------------
+  // Contact m from candidate k, point p of c; the lever arms and the bias
+  // of the prestep, which need nothing but the contact and the pose.
+  __host__ __device__ void push(const Tables& tab, int m, int k,
+                                const Contact2& c, int p) {
+    const int* it = tab.i;
+    const float* ft = tab.f;
+    const int cand_a = IT_SLOT_BODY + NS + 2 * NP;
+    const int a = it[cand_a + k], b = it[cand_a + KC + k];
+    cid[m] = k;
+    ia[m] = a;
+    ib[m] = b;
+    cu[m] = ft[FT_CAND_FRICTION + k];
+    cnx[m] = c.n[0];
+    cny[m] = c.n[1];
+    r1x[m] = c.pt[p][0] - px[a];
+    r1y[m] = c.pt[p][1] - py[a];
+    r2x[m] = c.pt[p][0] - px[b];
+    r2y[m] = c.pt[p][1] - py[b];
+    bias[m] = -ft[FT_SCALARS + SC_BIAS_COEF] *
+              fminf(c.d[p] + ft[FT_SCALARS + SC_SLOP], 0.0f) /
+              ft[FT_SCALARS + SC_DT];
+  }
+
+  // Lane l's contacts of the chunk, at their place in candidate order:
+  // after the valid contacts of lanes < l (a prefix count, never an
+  // atomic), so the list is the sequential one, later valid ones past
+  // MAXC dropped.  Lane 0 also counts the chunk's contacts.
+  __host__ __device__ void compact(const Tables& tab, int l) {
+    int at = nc, total = 0;
+    for (int o = 0; o < LANES; ++o) {
+      const int n = (stage[o].valid[0] ? 1 : 0) + (stage[o].valid[1] ? 1 : 0);
+      if (o < l) at += n;
+      total += n;
+    }
+    for (int p = 0; p < 2; ++p) {
+      if (!stage[l].valid[p]) continue;
+      if (at < MAXC) push(tab, at, stage_k[l] + p, stage[l], p);
+      ++at;
+    }
+    if (l == 0) nc_next = nc + total < MAXC ? nc + total : MAXC;
+  }
+
+  // The contacts body k takes part in (exact integer counts), >= 1.
+  __host__ __device__ void degree(int k) {
+    int n = 0;
+    for (int m = 0; m < nc; ++m) n += (ia[m] == k) + (ib[m] == k);
+    deg[k] = fmaxf((float)n, 1.0f);
+  }
+
+  // cpArbiterPreStep with mass-splitting stiffness (_contact_prestep),
+  // contact m.
+  __host__ __device__ void contact_prestep(int m) {
+    int a = ia[m], b = ib[m];
+    float sma = inv_m[a] * deg[a], smb = inv_m[b] * deg[b];
+    float sia = inv_i[a] * deg[a], sib = inv_i[b] * deg[b];
+    float nx = cnx[m], ny = cny[m];
+    float rn1 = cross2(r1x[m], r1y[m], nx, ny);
+    float rn2 = cross2(r2x[m], r2y[m], nx, ny);
+    float kn = sma + smb + sia * (rn1 * rn1) + sib * (rn2 * rn2);
+    float rt1 = cross2(r1x[m], r1y[m], -ny, nx);
+    float rt2 = cross2(r2x[m], r2y[m], -ny, nx);
+    float kt = sma + smb + sia * (rt1 * rt1) + sib * (rt2 * rt2);
+    nmass[m] = 1.0f / fmaxf(kn, 1e-12f);
+    tmass[m] = 1.0f / fmaxf(kt, 1e-12f);
+  }
+
+  // The joints' prestep and the eye springs' stiff part, lane 0.
+  __host__ __device__ void joint_prestep(const Tables& tab) {
+    const float* ft = tab.f;
+    const float dt = ft[FT_SCALARS + SC_DT];
     float gear_err = ang[0] - control_angle;
     float gmb = ft[FT_SCALARS + SC_GEAR_MAX_BIAS];
-    float gear_bias = clampf(-gear_err / dt, -gmb, gmb);
+    gear_bias = clampf(-gear_err / dt, -gmb, gmb);
     float c0 = cosf(ang[0]), s0 = sinf(ang[0]);
-    float pin_nx[2], pin_ny[2], pin_r1x[2], pin_r1y[2], pin_nmass[2];
-    float pin_bias[2], limit_bias[2];
     for (int side = 0; side < 2; ++side) {
       float rx = ft[FT_FINGER_REL + side * 2];
       float ry = ft[FT_FINGER_REL + side * 2 + 1];
@@ -686,32 +691,88 @@ struct Env {
       w[eb] = w[eb] + j_spring * inv_i[eb];
     }
     float eye_isum_inv = inv_i[0] + inv_i[3];
-    float eye_wcoef =
-        1.0f - expf(ft[FT_SCALARS + SC_EYE_DAMP_DT] * eye_isum_inv);
-    float pivot_jmax = phys[0] * dt, gear_jmax = phys[1] * dt;
-    float motor_jmax = phys[2] * dt;
-    float bp_jmax = phys[3] * dt, bg_jmax = phys[4] * dt;
+    eye_wcoef = 1.0f - expf(ft[FT_SCALARS + SC_EYE_DAMP_DT] * eye_isum_inv);
+    pivot_jmax = phys[0] * dt;
+    gear_jmax = phys[1] * dt;
+    motor_jmax = phys[2] * dt;
+    bp_jmax = phys[3] * dt;
+    bg_jmax = phys[4] * dt;
+  }
 
-    // ---- warm start (cpArbiterApplyCachedImpulse + constraint jAcc) -------
-    for (int k = 0; k < NB; ++k) vbx[k] = vby[k] = wb[k] = 0.0f;
-    float djx[MAXC], djy[MAXC];
+  // cpArbiterApplyCachedImpulse of contact m: its impulses of the last
+  // substep, found by candidate id among the old contacts.
+  __host__ __device__ void warm_start(int m) {
+    float jw_n = 0.0f, jw_t = 0.0f;
+    for (int o = 0; o < MAXC; ++o) {
+      if (old_id[o] >= 0 && old_id[o] == cid[m]) {
+        jw_n = old_jn[o];
+        jw_t = old_jt[o];
+        break;
+      }
+    }
+    jn[m] = jw_n;
+    jt[m] = jw_t;
+    jb[m] = 0.0f;
+    djx[m] = jw_n * cnx[m] + jw_t * (-cny[m]);
+    djy[m] = jw_n * cny[m] + jw_t * cnx[m];
+  }
+
+  // Lane l of apply's first half: per-body sums of the contact impulses
+  // (djx, djy) and, with BIAS, of the bias impulses (dbx, dby), on one
+  // side of each contact, -dj on A (lanes 0-15), +dj on B (lanes 16-31),
+  // body l mod 16, in contact order: the order of the plain version's
+  // sums, A side then B side, so every run gives the same bits.
+  template <bool BIAS>
+  __host__ __device__ void apply_sums(int l) {
+    const int side = l / (LANES / 2), k = l % (LANES / 2);
+    if (k >= NBP) return;
+    const int* on = side == 0 ? ia : ib;
+    const float* rx = side == 0 ? r1x : r2x;
+    const float* ry = side == 0 ? r1y : r2y;
+    const float im = inv_m[k], ii = inv_i[k];
+    float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int m = 0; m < nc; ++m) {
-      float jw_n = 0.0f, jw_t = 0.0f;
-      for (int o = 0; o < MAXC; ++o) {
-        if (old_id[o] >= 0 && old_id[o] == cid[m]) {
-          jw_n = old_jn[o];
-          jw_t = old_jt[o];
-          break;
+      if (on[m] != k) continue;
+      if (side == 0) {
+        s[0] += -djx[m] * im;
+        s[1] += -djy[m] * im;
+        s[2] += -ii * cross2(rx[m], ry[m], djx[m], djy[m]);
+        if (BIAS) {
+          s[3] += -dbx[m] * im;
+          s[4] += -dby[m] * im;
+          s[5] += -ii * cross2(rx[m], ry[m], dbx[m], dby[m]);
+        }
+      } else {
+        s[0] += djx[m] * im;
+        s[1] += djy[m] * im;
+        s[2] += ii * cross2(rx[m], ry[m], djx[m], djy[m]);
+        if (BIAS) {
+          s[3] += dbx[m] * im;
+          s[4] += dby[m] * im;
+          s[5] += ii * cross2(rx[m], ry[m], dbx[m], dby[m]);
         }
       }
-      jn[m] = jw_n;
-      jt[m] = jw_t;
-      jb[m] = 0.0f;
-      djx[m] = jw_n * cnx[m] + jw_t * (-cny[m]);
-      djy[m] = jw_n * cny[m] + jw_t * cnx[m];
     }
-    apply(djx, djy, vx, vy, w);
+    for (int q = 0; q < 6; ++q) part[side][k][q] = s[q];
+  }
 
+  // apply's second half, body k: u = u + (A side) + (B side).
+  template <bool BIAS>
+  __host__ __device__ void apply_add(int k) {
+    const float* pa = part[0][k];
+    const float* pb = part[1][k];
+    vx[k] = vx[k] + pa[0] + pb[0];
+    vy[k] = vy[k] + pa[1] + pb[1];
+    w[k] = w[k] + pa[2] + pb[2];
+    if (BIAS) {
+      vbx[k] = vbx[k] + pa[3] + pb[3];
+      vby[k] = vby[k] + pa[4] + pb[4];
+      wb[k] = wb[k] + pa[5] + pb[5];
+    }
+  }
+
+  // _apply_joint_cached, lane 0.
+  __host__ __device__ void apply_joint_cached() {
     float* pivot = jacc;          // 2
     float& gear = jacc[2];
     float* pin = jacc + 3;        // 2
@@ -719,9 +780,6 @@ struct Env {
     float* motor = jacc + 7;      // 2
     float* bpivot = jacc + 9;     // 2 MB
     float* bgear = jacc + 9 + 2 * MB;
-    float eye_target[2] = {0.0f, 0.0f};
-
-    // _apply_joint_cached
     vx[0] = vx[0] + pivot[0] * inv_m[0];
     vy[0] = vy[0] + pivot[1] * inv_m[0];
     w[0] = w[0] + gear * inv_i[0];
@@ -745,127 +803,308 @@ struct Env {
       vy[bb] = vy[bb] + bpivot[2 * k + 1] * inv_m[bb];
       w[bb] = w[bb] + bgear[k] * inv_i[bb];
     }
+  }
 
-    // ---- solver iterations ------------------------------------------------
-    for (int iter = 0; iter < iterations; ++iter) {
-      contact_iteration();
+  // One contact of the mass-splitting Jacobi sweep (_contact_iteration):
+  // every contact reads the same pre-sweep velocities.
+  __host__ __device__ void contact_sweep(int m) {
+    int a = ia[m], b = ib[m];
+    float nx = cnx[m], ny = cny[m];
+    float vb1x = vbx[a] + (-r1y[m]) * wb[a];
+    float vb1y = vby[a] + r1x[m] * wb[a];
+    float vb2x = vbx[b] + (-r2y[m]) * wb[b];
+    float vb2y = vby[b] + r2x[m] * wb[b];
+    float vbn = (vb2x - vb1x) * nx + (vb2y - vb1y) * ny;
+    float jbn = (bias[m] - vbn) * nmass[m];
+    float jb_new = fmaxf(jb[m] + jbn, 0.0f);
+    float djb = jb_new - jb[m];
+    dbx[m] = djb * nx;
+    dby[m] = djb * ny;
+    jb[m] = jb_new;
 
-      // _joint_sweep: Gauss-Seidel over the joints, in canonical order.
-      // 1. robot pivot velocity servo
-      {
-        float vrx = vx[0] - cvx, vry = vy[0] - cvy;
-        float jx = -vrx / inv_m[0], jy = -vry / inv_m[0];
-        float nx = pivot[0] + jx, ny = pivot[1] + jy;
-        float norm = sqrtf(nx * nx + ny * ny);
-        float sc = norm > pivot_jmax ? pivot_jmax / fmaxf(norm, 1e-12f)
-                                     : 1.0f;
-        nx = nx * sc;
-        ny = ny * sc;
-        vx[0] = vx[0] + (nx - pivot[0]) * inv_m[0];
-        vy[0] = vy[0] + (ny - pivot[1]) * inv_m[0];
-        pivot[0] = nx;
-        pivot[1] = ny;
-      }
-      // 2. robot gear heading servo
-      {
-        float j = (gear_bias - w[0]) / inv_i[0];
-        float nw = fminf(fmaxf(gear + j, -gear_jmax), gear_jmax);
-        w[0] = w[0] + (nw - gear) * inv_i[0];
-        gear = nw;
-      }
-      // 3. fingers: pin joint, rotary limit, simple motor per side
-      for (int side = 0; side < 2; ++side) {
-        int fb = 1 + side;
-        float nx = pin_nx[side], ny = pin_ny[side];
-        float rx = pin_r1x[side], ry = pin_r1y[side];
-        float vr1x = vx[0] + (-ry) * w[0], vr1y = vy[0] + rx * w[0];
-        float vrn = (vx[fb] - vr1x) * nx + (vy[fb] - vr1y) * ny;
-        float j = (pin_bias[side] - vrn) * pin_nmass[side];
-        float acc_new = pin[side] + j;
-        float d = acc_new - pin[side];
-        float dx = d * nx, dy = d * ny;
-        vx[0] = vx[0] + -dx * inv_m[0];
-        vy[0] = vy[0] + -dy * inv_m[0];
-        w[0] = w[0] + -inv_i[0] * cross2(rx, ry, dx, dy);
-        vx[fb] = vx[fb] + dx * inv_m[fb];
-        vy[fb] = vy[fb] + dy * inv_m[fb];
-        pin[side] = acc_new;
+    float vr1x = vx[a] + (-r1y[m]) * w[a];
+    float vr1y = vy[a] + r1x[m] * w[a];
+    float vr2x = vx[b] + (-r2y[m]) * w[b];
+    float vr2y = vy[b] + r2x[m] * w[b];
+    float vrx = vr2x - vr1x, vry = vr2y - vr1y;
+    float vrn = vrx * nx + vry * ny;
+    float jnv = -vrn * nmass[m];          // bounce = 0 (elasticity 0)
+    float jn_new = fmaxf(jn[m] + jnv, 0.0f);
+    float jt_max = cu[m] * jn_new;
+    float vrt = vrx * (-ny) + vry * nx;
+    float jtv = -vrt * tmass[m];
+    float jt_new = fminf(fmaxf(jt[m] + jtv, -jt_max), jt_max);
+    float dn = jn_new - jn[m], dtg = jt_new - jt[m];
+    djx[m] = dn * nx + dtg * (-ny);
+    djy[m] = dn * ny + dtg * nx;
+    jn[m] = jn_new;
+    jt[m] = jt_new;
+  }
 
-        float lb = limit_bias[side];
-        float i_sum = 1.0f / (inv_i[0] + inv_i[fb]);
-        float wr = w[fb] - w[0];
-        j = -(lb + wr) * i_sum;
-        acc_new = lb < 0.0f ? fmaxf(limit[side] + j, 0.0f)
-                            : fminf(limit[side] + j, 0.0f);
-        float dj = acc_new - limit[side];
-        if (lb == 0.0f) {
-          acc_new = 0.0f;
-          dj = 0.0f;
-        }
-        w[0] = w[0] + -dj * inv_i[0];
-        w[fb] = w[fb] + dj * inv_i[fb];
-        limit[side] = acc_new;
-
-        wr = w[fb] - w[0] + motor_rate[side];
-        j = -wr * i_sum;
-        acc_new = fminf(fmaxf(motor[side] + j, -motor_jmax), motor_jmax);
-        dj = acc_new - motor[side];
-        w[0] = w[0] + -dj * inv_i[0];
-        w[fb] = w[fb] + dj * inv_i[fb];
-        motor[side] = acc_new;
-      }
-      // 4. eye damped rotary springs (damping part)
-      for (int side = 0; side < 2; ++side) {
-        int eb = 3 + side;
-        float i_sum = 1.0f / (inv_i[0] + inv_i[eb]);
-        float wrn = w[0] - w[eb];
-        float w_damp = (eye_target[side] - wrn) * eye_wcoef;
-        float new_target = wrn + w_damp;
-        float j_damp = w_damp * i_sum;
-        w[0] = w[0] + j_damp * inv_i[0];
-        w[eb] = w[eb] + -j_damp * inv_i[eb];
-        eye_target[side] = new_target;
-      }
-      // 5. block top-down friction dampers
-      for (int k = 0; k < MB; ++k) {
-        int bb = NROBOT + k;
-        float imb = inv_m[bb], iib = inv_i[bb];
-        float safe_m = imb > 0.0f ? imb : 1.0f;
-        float jx = imb > 0.0f ? -vx[bb] / safe_m : 0.0f;
-        float jy = imb > 0.0f ? -vy[bb] / safe_m : 0.0f;
-        float nx = bpivot[2 * k] + jx, ny = bpivot[2 * k + 1] + jy;
-        float norm = sqrtf(nx * nx + ny * ny);
-        float sc = norm > bp_jmax ? bp_jmax / fmaxf(norm, 1e-12f) : 1.0f;
-        nx = nx * sc;
-        ny = ny * sc;
-        vx[bb] = vx[bb] + (nx - bpivot[2 * k]) * imb;
-        vy[bb] = vy[bb] + (ny - bpivot[2 * k + 1]) * imb;
-        bpivot[2 * k] = nx;
-        bpivot[2 * k + 1] = ny;
-
-        float safe_i = iib > 0.0f ? iib : 1.0f;
-        float j = iib > 0.0f ? -w[bb] / safe_i : 0.0f;
-        float nw = fminf(fmaxf(bgear[k] + j, -bg_jmax), bg_jmax);
-        w[bb] = w[bb] + (nw - bgear[k]) * iib;
-        bgear[k] = nw;
-      }
+  // _joint_sweep over the robot's joints, Gauss-Seidel in canonical
+  // order, lane 0; eye_target is the eye dampers' state of the substep.
+  __host__ __device__ void robot_joints(float* eye_target) {
+    float* pivot = jacc;
+    float& gear = jacc[2];
+    float* pin = jacc + 3;
+    float* limit = jacc + 5;
+    float* motor = jacc + 7;
+    // 1. robot pivot velocity servo
+    {
+      float vrx = vx[0] - cvx, vry = vy[0] - cvy;
+      float jx = -vrx / inv_m[0], jy = -vry / inv_m[0];
+      float nx = pivot[0] + jx, ny = pivot[1] + jy;
+      float norm = sqrtf(nx * nx + ny * ny);
+      float sc = norm > pivot_jmax ? pivot_jmax / fmaxf(norm, 1e-12f)
+                                   : 1.0f;
+      nx = nx * sc;
+      ny = ny * sc;
+      vx[0] = vx[0] + (nx - pivot[0]) * inv_m[0];
+      vy[0] = vy[0] + (ny - pivot[1]) * inv_m[0];
+      pivot[0] = nx;
+      pivot[1] = ny;
     }
-
-    // contacts past the valid count leave the cache empty
-    for (int m = nc; m < MAXC; ++m) {
-      cid[m] = -1;
-      jn[m] = 0.0f;
-      jt[m] = 0.0f;
+    // 2. robot gear heading servo
+    {
+      float j = (gear_bias - w[0]) / inv_i[0];
+      float nw = fminf(fmaxf(gear + j, -gear_jmax), gear_jmax);
+      w[0] = w[0] + (nw - gear) * inv_i[0];
+      gear = nw;
     }
+    // 3. fingers: pin joint, rotary limit, simple motor per side
+    for (int side = 0; side < 2; ++side) {
+      int fb = 1 + side;
+      float nx = pin_nx[side], ny = pin_ny[side];
+      float rx = pin_r1x[side], ry = pin_r1y[side];
+      float vr1x = vx[0] + (-ry) * w[0], vr1y = vy[0] + rx * w[0];
+      float vrn = (vx[fb] - vr1x) * nx + (vy[fb] - vr1y) * ny;
+      float j = (pin_bias[side] - vrn) * pin_nmass[side];
+      float acc_new = pin[side] + j;
+      float d = acc_new - pin[side];
+      float dx = d * nx, dy = d * ny;
+      vx[0] = vx[0] + -dx * inv_m[0];
+      vy[0] = vy[0] + -dy * inv_m[0];
+      w[0] = w[0] + -inv_i[0] * cross2(rx, ry, dx, dy);
+      vx[fb] = vx[fb] + dx * inv_m[fb];
+      vy[fb] = vy[fb] + dy * inv_m[fb];
+      pin[side] = acc_new;
+
+      float lb = limit_bias[side];
+      float i_sum = 1.0f / (inv_i[0] + inv_i[fb]);
+      float wr = w[fb] - w[0];
+      j = -(lb + wr) * i_sum;
+      acc_new = lb < 0.0f ? fmaxf(limit[side] + j, 0.0f)
+                          : fminf(limit[side] + j, 0.0f);
+      float dj = acc_new - limit[side];
+      if (lb == 0.0f) {
+        acc_new = 0.0f;
+        dj = 0.0f;
+      }
+      w[0] = w[0] + -dj * inv_i[0];
+      w[fb] = w[fb] + dj * inv_i[fb];
+      limit[side] = acc_new;
+
+      wr = w[fb] - w[0] + motor_rate[side];
+      j = -wr * i_sum;
+      acc_new = fminf(fmaxf(motor[side] + j, -motor_jmax), motor_jmax);
+      dj = acc_new - motor[side];
+      w[0] = w[0] + -dj * inv_i[0];
+      w[fb] = w[fb] + dj * inv_i[fb];
+      motor[side] = acc_new;
+    }
+    // 4. eye damped rotary springs (damping part)
+    for (int side = 0; side < 2; ++side) {
+      int eb = 3 + side;
+      float i_sum = 1.0f / (inv_i[0] + inv_i[eb]);
+      float wrn = w[0] - w[eb];
+      float w_damp = (eye_target[side] - wrn) * eye_wcoef;
+      float new_target = wrn + w_damp;
+      float j_damp = w_damp * i_sum;
+      w[0] = w[0] + j_damp * inv_i[0];
+      w[eb] = w[eb] + -j_damp * inv_i[eb];
+      eye_target[side] = new_target;
+    }
+  }
+
+  // 5. the top-down friction damper of block k: its own body and
+  // accumulators only, so the blocks go across lanes.
+  __host__ __device__ void block_damper(int k) {
+    float* bpivot = jacc + 9;
+    float* bgear = jacc + 9 + 2 * MB;
+    int bb = NROBOT + k;
+    float imb = inv_m[bb], iib = inv_i[bb];
+    float safe_m = imb > 0.0f ? imb : 1.0f;
+    float jx = imb > 0.0f ? -vx[bb] / safe_m : 0.0f;
+    float jy = imb > 0.0f ? -vy[bb] / safe_m : 0.0f;
+    float nx = bpivot[2 * k] + jx, ny = bpivot[2 * k + 1] + jy;
+    float norm = sqrtf(nx * nx + ny * ny);
+    float sc = norm > bp_jmax ? bp_jmax / fmaxf(norm, 1e-12f) : 1.0f;
+    nx = nx * sc;
+    ny = ny * sc;
+    vx[bb] = vx[bb] + (nx - bpivot[2 * k]) * imb;
+    vy[bb] = vy[bb] + (ny - bpivot[2 * k + 1]) * imb;
+    bpivot[2 * k] = nx;
+    bpivot[2 * k + 1] = ny;
+
+    float safe_i = iib > 0.0f ? iib : 1.0f;
+    float j = iib > 0.0f ? -w[bb] / safe_i : 0.0f;
+    float nw = fminf(fmaxf(bgear[k] + j, -bg_jmax), bg_jmax);
+    w[bb] = w[bb] + (nw - bgear[k]) * iib;
+    bgear[k] = nw;
   }
 };
 
+// Cycles of the phase just ended, added to the env's count of phase `ph`
+// (only on the card, and only where the caller asked for them).
+#ifdef __CUDA_ARCH__
+#define PHASE_CLOCK(ph)                                         \
+  do {                                                          \
+    if (clk) {                                                  \
+      const long long now = clock64();                          \
+      if (lane == 0) clk[ph] += now - t_last;                   \
+      t_last = now;                                             \
+    }                                                           \
+  } while (0)
+#else
+#define PHASE_CLOCK(ph) \
+  do {                  \
+  } while (0)
+#endif
+
+// Env b's whole control step (10 substeps x 10 solver iterations) on the
+// lanes of one warp, `e` its state in shared memory, `lane` this thread's
+// lane (a host build runs every lane of each phase in turn).  Wherever two
+// lanes' results meet (the contact list, the per-body sums) it keeps the
+// sequential order of operations of core/physics.py.
 template <int MB>
-__host__ __device__ void control_step_env(const Args& a, int b) {
-  Env<MB> env;
-  env.load(a, b);
-  for (int s = 0; s < a.phys_steps; ++s) env.substep(a.tab, a.iterations);
-  env.store(a, b);
+__host__ __device__ void control_step_warp(const Args& a, int b,
+                                           WarpEnv<MB>& e, int lane) {
+  using E = WarpEnv<MB>;
+  const Tables& tab = a.tab;
+  const float dt = tab.f[FT_SCALARS + SC_DT];
+  long long* clk = a.phase_clock ? a.phase_clock + (size_t)b * N_PHASES
+                                 : nullptr;
+#ifdef __CUDA_ARCH__
+  long long t_last = clock64();
+#endif
+  (void)clk;
+
+  WARP_PHASE({
+    for (int k = lane; k < E::NB; k += LANES) e.load_body(a, b, k);
+    for (int k = lane; k < MB; k += LANES) {
+      e.shape[k] = a.block_shape[b * MB + k];
+      e.bactive[k] = a.block_active[b * MB + k] != 0;
+    }
+    for (int m = lane; m < E::MAXC; m += LANES) {
+      e.cid[m] = a.con_id[b * E::MAXC + m];
+      e.jn[m] = a.con_jn[b * E::MAXC + m];
+      e.jt[m] = a.con_jt[b * E::MAXC + m];
+    }
+    for (int k = lane; k < E::NJ; k += LANES)
+      e.jacc[k] = a.joint_acc[b * E::NJ + k];
+    if (lane == 0) {
+      e.px[E::NB] = e.py[E::NB] = e.ang[E::NB] = 0.0f;
+      e.vx[E::NB] = e.vy[E::NB] = e.w[E::NB] = 0.0f;
+      e.vbx[E::NB] = e.vby[E::NB] = e.wb[E::NB] = 0.0f;
+      e.targets(a, b);
+    }
+  });
+  WARP_PHASE({
+    for (int k = lane; k < E::NBP; k += LANES) e.masses(tab, k);
+    for (int s = lane; s < E::NS; s += LANES)
+      e.sact[s] = e.slot_active(tab, s);
+    if (lane == 0) e.n_items = e.n_items_next = 0;
+  });
+  for (int base = 0; base < E::NITEM; base += LANES) {
+    WARP_PHASE({
+      e.flag_item(tab, base + lane, lane);
+      if (lane == 0) e.n_items = e.n_items_next;
+    });
+    WARP_PHASE(e.place_item(base, lane));
+  }
+  WARP_PHASE(if (lane == 0) e.n_items = e.n_items_next);
+  PHASE_CLOCK(PH_OTHER);
+
+  for (int sub = 0; sub < a.phys_steps; ++sub) {
+    WARP_PHASE(if (lane == 0) e.robot_update());
+    WARP_PHASE(for (int k = lane; k < E::NB; k += LANES) e.integrate(dt, k));
+    PHASE_CLOCK(PH_OTHER);
+
+    // narrowphase + stable compaction; the caches move to old_*
+    WARP_PHASE({
+      for (int s = lane; s < E::NS; s += LANES) e.build_slot(tab, s);
+      for (int m = lane; m < E::MAXC; m += LANES) {
+        e.old_id[m] = e.cid[m];
+        e.old_jn[m] = e.jn[m];
+        e.old_jt[m] = e.jt[m];
+      }
+      if (lane == 0) e.nc = e.nc_next = 0;
+    });
+    for (int base = 0; base < e.n_items; base += LANES) {
+      WARP_PHASE({
+        e.narrow(tab, base + lane, lane);
+        if (lane == 0) e.nc = e.nc_next;
+      });
+      WARP_PHASE(e.compact(tab, lane));
+    }
+    WARP_PHASE(if (lane == 0) e.nc = e.nc_next);
+    PHASE_CLOCK(PH_NARROW);
+
+    // contact and joint prestep, warm start
+    const int nc = e.nc;
+    WARP_PHASE(for (int k = lane; k < E::NBP; k += LANES) e.degree(k));
+    WARP_PHASE({
+      for (int m = lane; m < nc; m += LANES) e.contact_prestep(m);
+      if (lane == 0) e.joint_prestep(tab);
+    });
+    WARP_PHASE({
+      for (int k = lane; k < E::NB; k += LANES)
+        e.vbx[k] = e.vby[k] = e.wb[k] = 0.0f;
+      for (int m = lane; m < nc; m += LANES) e.warm_start(m);
+    });
+    WARP_PHASE(e.template apply_sums<false>(lane));
+    WARP_PHASE(for (int k = lane; k < E::NBP; k += LANES)
+                   e.template apply_add<false>(k));
+    WARP_PHASE(if (lane == 0) e.apply_joint_cached());
+    PHASE_CLOCK(PH_PRESTEP);
+
+    // solver iterations
+    float eye_target[2] = {0.0f, 0.0f};     // lane 0's
+    for (int iter = 0; iter < a.iterations; ++iter) {
+      WARP_PHASE(for (int m = lane; m < nc; m += LANES) e.contact_sweep(m));
+      PHASE_CLOCK(PH_SWEEP);
+      WARP_PHASE(e.template apply_sums<true>(lane));
+      WARP_PHASE(for (int k = lane; k < E::NBP; k += LANES)
+                     e.template apply_add<true>(k));
+      PHASE_CLOCK(PH_APPLY);
+      WARP_PHASE({
+        if (lane == 0) e.robot_joints(eye_target);
+        for (int k = lane; k < MB; k += LANES) e.block_damper(k);
+      });
+      PHASE_CLOCK(PH_JOINTS);
+    }
+
+    // contacts past the valid count leave the cache empty
+    WARP_PHASE(for (int m = nc + lane; m < E::MAXC; m += LANES) {
+      e.cid[m] = -1;
+      e.jn[m] = 0.0f;
+      e.jt[m] = 0.0f;
+    });
+    PHASE_CLOCK(PH_OTHER);
+  }
+
+  WARP_PHASE({
+    for (int k = lane; k < E::NB; k += LANES) e.store_body(a, b, k);
+    for (int m = lane; m < E::MAXC; m += LANES) {
+      a.con_id[b * E::MAXC + m] = e.cid[m];
+      a.con_jn[b * E::MAXC + m] = e.jn[m];
+      a.con_jt[b * E::MAXC + m] = e.jt[m];
+    }
+    for (int k = lane; k < E::NJ; k += LANES)
+      a.joint_acc[b * E::NJ + k] = e.jacc[k];
+    if (lane == 0) a.t[b] = a.t[b] + 1;
+  });
+  PHASE_CLOCK(PH_OTHER);
 }
 
 }  // namespace magical

@@ -1,13 +1,23 @@
 // Per-pixel arithmetic of the compositing kernels, lo (render_lo.cu) and
 // hi (render_hi.cu): camera transform, prim SDFs, coverage, painter's-order
 // blends and the uint8 quantise of core/render.py (render_frame, then
-// to_uint8; at hi fidelity also the 4x4 box mean of downsample4).  Plain
-// C++ in __host__ __device__ functions, so that it also builds for the
-// host.
+// to_uint8; at hi fidelity also the 4x4 box mean of downsample4); and the
+// lo kernels' display-list build, which makes an env's prims from its
+// state and the scene's display program (build_prim, the arithmetic of
+// core/render.py build_display_list).  Plain C++ in __host__ __device__
+// functions, so that it also builds for the host.
 
 #pragma once
 
 #include <math.h>
+
+// The cosine and sine of body angles.  On the card these are CUDA's
+// cosf / sinf, the functions PyTorch's CUDA cos and sin call; a host build
+// may name PyTorch's CPU values instead (tests/kernel_host_shim.cpp).
+#ifndef MAGICAL_RENDER_COSF
+#define MAGICAL_RENDER_COSF cosf
+#define MAGICAL_RENDER_SINF sinf
+#endif
 
 namespace magical_render {
 
@@ -131,17 +141,232 @@ __host__ __device__ inline void load_prim(const RenderArgs& a, int b, int i,
   prim_faces(p);
 }
 
-// The camera of env b: the ego view follows the robot's pose.
-__host__ __device__ inline Camera env_camera(const RenderArgs& a, int b) {
+// The camera of env b: the ego view follows the robot's pose.  `A` is
+// RenderArgs or SceneArgs.
+template <class A>
+__host__ __device__ inline Camera env_camera(const A& a, int b) {
   Camera cam = a.cam;
   if (cam.ego) {
     const float ang = a.angle[b * a.nb];
-    cam.c = cosf(ang);
-    cam.s = sinf(ang);
+    cam.c = MAGICAL_RENDER_COSF(ang);
+    cam.s = MAGICAL_RENDER_SINF(ang);
     cam.rx = a.pos[b * a.nb * 2];
     cam.ry = a.pos[b * a.nb * 2 + 1];
   }
   return cam;
+}
+
+// ---------------------------------------------------------------------------
+// The display list built from the state (the lo render, K2 and K3)
+// ---------------------------------------------------------------------------
+
+// The display program (core/render_kernel.py program_arrays): per display
+// slot, in draw order, PROG_I ints and PROG_F floats saying what it draws.
+enum { PI_OP, PI_IDX, PI_TABLE, PI_K, PI_SHAPE, PI_NV, PI_COLTAB, PI_KIND,
+       PROG_I };
+enum { PF_V = 0, PF_RAD = 2 * NV, PF_LW, PF_COL, PROG_F = PF_COL + 3 };
+// What a slot draws (PI_OP), from what (PI_IDX):
+//   OP_STATIC       the local verts PF_V as they are (the arena);
+//   OP_GOAL         goal PI_IDX's box;
+//   OP_BODY_POLY    the local verts PF_V on body PI_IDX (a finger part);
+//   OP_BODY_CIRCLE  a circle at the robot's centre;
+//   OP_EYE          eye PI_IDX: a circle at local offset PF_V[0..1];
+//   OP_PUPIL        pupil PI_IDX: the eye offset plus PF_V[2..3], turned
+//                   by the eye body's angle relative to the robot's;
+//   OP_BLOCK        block PI_IDX's sub-shape PI_K of table PI_TABLE (0 dark
+//                   outer parts, 1 bright inner parts), of static shape
+//                   PI_SHAPE, or of the env's block_shape where it is -1.
+// Colour: PF_COL, or where PI_COLTAB >= 0 colour table PI_COLTAB (0 goal
+// light, 1 block, 2 block dark) at the goal's or the block's colour.
+enum { OP_STATIC, OP_GOAL, OP_BODY_POLY, OP_BODY_CIRCLE, OP_EYE, OP_PUPIL,
+       OP_BLOCK };
+constexpr int NSHAPE = 7;    // block shape types
+constexpr int KSUB = 6;      // sub-shapes a block
+constexpr int NCOLOUR = 4;
+// Shared tables: block sub-shapes [table][shape][k] (geometry.BLOCK_VERTS*,
+// BLOCK_SUB_*) and colours (constants.GOAL_COLOURS_LIGHT, BLOCK_COLOURS,
+// BLOCK_COLOURS_DARK).
+constexpr int TF_VERTS = 0;
+constexpr int TF_RAD = TF_VERTS + 2 * NSHAPE * KSUB * NV * 2;
+constexpr int TF_COLOURS = TF_RAD + 2 * NSHAPE * KSUB;
+constexpr int TF_SIZE = TF_COLOURS + 3 * NCOLOUR * 3;
+constexpr int TI_NV = 0;
+constexpr int TI_ACTIVE = TI_NV + 2 * NSHAPE * KSUB;
+constexpr int TI_SIZE = TI_ACTIVE + 2 * NSHAPE * KSUB;
+
+// What K2/K3 read: the EnvState tensors the display list depends on, the
+// display program, and where the uint8 frame goes.
+struct SceneArgs {
+  const float* pos;                   // (B, NB, 2)
+  const float* angle;                 // (B, NB)
+  const int* block_shape;             // (B, MB)
+  const int* block_colour;            // (B, MB)
+  const unsigned char* block_active;  // (B, MB) bool
+  const float* goal_xyhw;             // (B, MG, 4): centre x, y, h, w
+  const int* goal_colour;             // (B, MG)
+  const unsigned char* goal_active;   // (B, MG) bool
+  const int* prog_i;                  // (P, PROG_I)
+  const float* prog_f;                // (P, PROG_F)
+  const float* tab_f;                 // (TF_SIZE,)
+  const int* tab_i;                   // (TI_SIZE,)
+  unsigned char* out;                 // (B, res, res, 3)
+  int B, P, res, nb, mb, mg;
+  Camera cam;
+};
+
+inline SceneArgs make_scene_args(
+    const void* pos, const void* angle, const void* block_shape,
+    const void* block_colour, const void* block_active,
+    const void* goal_xyhw, const void* goal_colour, const void* goal_active,
+    const void* prog_i, const void* prog_f, const void* tab_f,
+    const void* tab_i, void* out, int B, int P, int res, int nb, int mb,
+    int mg, int ego, float scale, float half, float npx, float npy,
+    float lw_scale, float two_scale, float bg0, float bg1, float bg2) {
+  SceneArgs a;
+  a.pos = static_cast<const float*>(pos);
+  a.angle = static_cast<const float*>(angle);
+  a.block_shape = static_cast<const int*>(block_shape);
+  a.block_colour = static_cast<const int*>(block_colour);
+  a.block_active = static_cast<const unsigned char*>(block_active);
+  a.goal_xyhw = static_cast<const float*>(goal_xyhw);
+  a.goal_colour = static_cast<const int*>(goal_colour);
+  a.goal_active = static_cast<const unsigned char*>(goal_active);
+  a.prog_i = static_cast<const int*>(prog_i);
+  a.prog_f = static_cast<const float*>(prog_f);
+  a.tab_f = static_cast<const float*>(tab_f);
+  a.tab_i = static_cast<const int*>(tab_i);
+  a.out = static_cast<unsigned char*>(out);
+  a.B = B;
+  a.P = P;
+  a.res = res;
+  a.nb = nb;
+  a.mb = mb;
+  a.mg = mg;
+  a.cam = Camera{res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f,
+                 0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
+  return a;
+}
+
+// Local verts `lv` on a body at (px, py) turned by `ang`, into p.v:
+// collision.transform_verts, c x - s y + px in that order.
+__host__ __device__ inline void place_verts(const float* lv, float px,
+                                            float py, float ang, Prim& p) {
+  const float c = MAGICAL_RENDER_COSF(ang), s = MAGICAL_RENDER_SINF(ang);
+  for (int v = 0; v < NV; ++v) {
+    p.v[v][0] = c * lv[2 * v] - s * lv[2 * v + 1] + px;
+    p.v[v][1] = s * lv[2 * v] + c * lv[2 * v + 1] + py;
+  }
+}
+
+// Slot i of env b's display list, from the state and the display program,
+// with its faces: what build_display_list gives slot i (verts, nv, radius,
+// colour, active) and static_prim_meta (kind, line width), in the same
+// operations.
+__host__ __device__ inline void build_prim(const SceneArgs& a, int b, int i,
+                                           Prim& p) {
+  const int* pi = a.prog_i + i * PROG_I;
+  const float* pf = a.prog_f + i * PROG_F;
+  const int idx = pi[PI_IDX];
+  const float* pos = a.pos + (size_t)b * a.nb * 2;
+  const float* ang = a.angle + (size_t)b * a.nb;
+  p.nv = pi[PI_NV];
+  p.rad = pf[PF_RAD];
+  p.kind = pi[PI_KIND];
+  p.lw = pf[PF_LW];
+  p.active = true;
+  int colour = 0;                      // row of the colour table
+  switch (pi[PI_OP]) {
+    case OP_STATIC:
+      for (int v = 0; v < NV; ++v) {
+        p.v[v][0] = pf[PF_V + 2 * v];
+        p.v[v][1] = pf[PF_V + 2 * v + 1];
+      }
+      break;
+    case OP_GOAL: {
+      // render.py build_display_list: the box TR, TL, BL, BR, padded
+      // with BR
+      const size_t g = (size_t)b * a.mg + idx;
+      const float* x = a.goal_xyhw + g * 4;
+      const float cx = x[0], cy = x[1], h = x[2], w = x[3];
+      const float xr = cx + w / 2.0f, xl = cx - w / 2.0f;
+      const float yt = cy + h / 2.0f, yb = cy - h / 2.0f;
+      p.v[0][0] = xr;
+      p.v[0][1] = yt;
+      p.v[1][0] = xl;
+      p.v[1][1] = yt;
+      p.v[2][0] = xl;
+      p.v[2][1] = yb;
+      for (int v = 3; v < NV; ++v) {
+        p.v[v][0] = xr;
+        p.v[v][1] = yb;
+      }
+      p.active = a.goal_active[g] != 0;
+      colour = a.goal_colour[g];
+      break;
+    }
+    case OP_BODY_POLY:
+      place_verts(pf + PF_V, pos[2 * idx], pos[2 * idx + 1], ang[idx], p);
+      break;
+    case OP_BODY_CIRCLE:
+      for (int v = 0; v < NV; ++v) {
+        p.v[v][0] = pos[0];
+        p.v[v][1] = pos[1];
+      }
+      break;
+    case OP_EYE:
+    case OP_PUPIL: {
+      // c0 + _mat_vec(ca, sa, eye_local [+ off]), off the pupil offset
+      // turned by the eye body's angle relative to the robot's
+      const float ca = MAGICAL_RENDER_COSF(ang[0]);
+      const float sa = MAGICAL_RENDER_SINF(ang[0]);
+      float ex = pf[PF_V], ey = pf[PF_V + 1];
+      if (pi[PI_OP] == OP_PUPIL) {
+        const float rot = ang[3 + idx] - ang[0];
+        const float cp = MAGICAL_RENDER_COSF(rot);
+        const float sp = MAGICAL_RENDER_SINF(rot);
+        const float ox = pf[PF_V + 2], oy = pf[PF_V + 3];
+        const float offx = cp * ox - sp * oy, offy = sp * ox + cp * oy;
+        ex = ex + offx;
+        ey = ey + offy;
+      }
+      const float x = pos[0] + (ca * ex - sa * ey);
+      const float y = pos[1] + (sa * ex + ca * ey);
+      for (int v = 0; v < NV; ++v) {
+        p.v[v][0] = x;
+        p.v[v][1] = y;
+      }
+      break;
+    }
+    default: {                         // OP_BLOCK
+      const size_t bi = (size_t)b * a.mb + idx;
+      const int shape = pi[PI_SHAPE] >= 0 ? pi[PI_SHAPE] : a.block_shape[bi];
+      const int tk = (pi[PI_TABLE] * NSHAPE + shape) * KSUB + pi[PI_K];
+      const int body = 5 + idx;
+      place_verts(a.tab_f + TF_VERTS + tk * NV * 2, pos[2 * body],
+                  pos[2 * body + 1], ang[body], p);
+      p.nv = a.tab_i[TI_NV + tk];
+      p.rad = a.tab_f[TF_RAD + tk];
+      p.active = a.block_active[bi] != 0 && a.tab_i[TI_ACTIVE + tk] != 0;
+      colour = a.block_colour[bi];
+      break;
+    }
+  }
+  const int tab = pi[PI_COLTAB];
+  for (int c = 0; c < 3; ++c)
+    p.col[c] = tab < 0 ? pf[PF_COL + c]
+                       : a.tab_f[TF_COLOURS + (tab * NCOLOUR + colour) * 3 + c];
+  prim_faces(p);
+}
+
+// The prim of slot i of env b as a kernel stages it: from the batched
+// display list (K4, K5) or built from the state (K2, K3).
+__host__ __device__ inline void stage_prim(const RenderArgs& a, int b, int i,
+                                           Prim& p) {
+  load_prim(a, b, i, p);
+}
+__host__ __device__ inline void stage_prim(const SceneArgs& a, int b, int i,
+                                           Prim& p) {
+  build_prim(a, b, i, p);
 }
 
 // World coordinates of the centre of pixel (row, col).

@@ -15,6 +15,7 @@ package's) and the whole reset can be compared value for value.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -176,6 +177,13 @@ class GivenDraws(Draws):
 
     def randint(self, name, low, high, shape=()):
         return self._given(name, torch.int32, shape)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tuple of a score function as a tensor on `device`, made
+    once per device: a step copies nothing from the host for it."""
+    return torch.tensor(np.asarray(values), dtype=dtype, device=device)
 
 
 def per_env(x, batch: int, device, dtype=torch.float32):

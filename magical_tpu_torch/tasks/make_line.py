@@ -97,7 +97,9 @@ def longest_line(points, active, inlier_dist=INLIER_DIST, max_sep=MAX_SEP):
     `inlier_dist` of it and at most `max_sep` from the next along it."""
     B_, mb = active.shape
     dev = points.device
-    ii, jj = (torch.as_tensor(x, device=dev) for x in np.triu_indices(mb, 1))
+    ii, jj = B.device_constant(
+        tuple(tuple(int(i) for i in x) for x in np.triu_indices(mb, 1)), dev,
+        torch.int64)
     npair = ii.shape[0]
     offs = points[:, None, :, :] - points[:, ii, None, :]    # (B, NP, MB, 2)
     pj_off = offs[:, torch.arange(npair, device=dev), jj]    # (B, NP, 2)

@@ -85,7 +85,7 @@ def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
 def score(state):
     """move_to_corner.py:66-75 — linear ramp on block distance to (-1, 1)."""
     p = state.pos[..., 5, :]
-    d = torch.tensor([-1.0, 1.0], device=p.device) - p
+    d = B.device_constant((-1.0, 1.0), p.device) - p
     dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
     succeed = math.sqrt(2) / 2
     furthest = math.sqrt(2)
@@ -96,7 +96,7 @@ def debug_shaped_reward(state):
     """move_to_corner.py:84-98 — dense debug reward for RL sanity checks."""
     shape_pos = state.pos[..., 5, :]
     robot_pos = state.pos[..., 0, :]
-    s = shape_pos - torch.tensor([0.0, 1.0], device=shape_pos.device)
+    s = shape_pos - B.device_constant((0.0, 1.0), shape_pos.device)
     r = robot_pos - shape_pos
     s2c = torch.sqrt(s[..., 0] * s[..., 0] + s[..., 1] * s[..., 1])
     r2s = torch.sqrt(r[..., 0] * r[..., 0] + r[..., 1] * r[..., 1])

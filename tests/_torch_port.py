@@ -180,7 +180,7 @@ def slice_against_the_reference(name, fidelity, n_steps=3, batch=2):
     from magical_tpu_torch.core import preproc
 
     je = JaxEnv(name, fidelity=fidelity)
-    te = BatchedEnv(name, fidelity=fidelity)
+    te = BatchedEnv(name, fidelity=fidelity, device='cpu')
     jc, jo = je.reset(jax.random.split(jax.random.PRNGKey(0), batch))
     t0 = te.max_episode_steps - n_steps
     jc = jc.replace(state=jc.state.replace(

@@ -5,10 +5,59 @@
 // as the plain PyTorch versions do.
 #define __host__
 #define __device__
+#include <math.h>
 #include <stddef.h>
+#include <string.h>
+
+#include <unordered_map>
+
+// The lo render's cosines and sines: the host's libm rounds cosf and
+// sinf one ulp apart from PyTorch's CPU cos and sin on ~5% of angles, where
+// CUDA's cosf and PyTorch's CUDA cos are one function.  So a test hands in
+// PyTorch's values for the angles it renders (render_set_trig); an angle
+// it did not hand in takes libm's and is counted (render_trig_misses).
+namespace {
+std::unordered_map<unsigned, float> g_cos, g_sin;
+long g_trig_misses = 0;
+
+unsigned float_bits(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+
+float shim_trig(const std::unordered_map<unsigned, float>& t, float x,
+                float (*libm)(float)) {
+  auto it = t.find(float_bits(x));
+  if (it != t.end()) return it->second;
+  ++g_trig_misses;
+  return libm(x);
+}
+float shim_cosf(float x) { return shim_trig(g_cos, x, cosf); }
+float shim_sinf(float x) { return shim_trig(g_sin, x, sinf); }
+}  // namespace
+
+#define MAGICAL_RENDER_COSF shim_cosf
+#define MAGICAL_RENDER_SINF shim_sinf
 
 #include "physics_step.cuh"
 #include "render_lo.cuh"
+
+// Take PyTorch's cos[i] and sin[i] for angle x[i] (replacing any earlier
+// table), and reset the miss count.
+extern "C" int render_set_trig(const float* x, const float* c,
+                               const float* s, int n) {
+  g_cos.clear();
+  g_sin.clear();
+  for (int i = 0; i < n; ++i) {
+    g_cos[float_bits(x[i])] = c[i];
+    g_sin[float_bits(x[i])] = s[i];
+  }
+  g_trig_misses = 0;
+  return 0;
+}
+
+extern "C" long render_trig_misses() { return g_trig_misses; }
 
 extern "C" int physics_table_layout(int* out) {
   out[0] = magical::FT_CAND_FRICTION;
@@ -24,7 +73,7 @@ extern "C" int physics_control_step(
     const void* block_active, const void* phys, void* con_id, void* con_jn,
     void* con_jt, void* joint_acc, void* t, const void* action,
     const void* ftab, const void* itab, int B, int mb, int phys_steps,
-    int iterations, void* stream) {
+    int iterations, void* phase_clock, void* stream) {
   magical::Args a;
   a.pos = (float*)pos;
   a.angle = (float*)angle;
@@ -49,11 +98,16 @@ extern "C" int physics_control_step(
   a.B = B;
   a.phys_steps = phys_steps;
   a.iterations = iterations;
+  a.phase_clock = nullptr;
+  // the kernel's warps, one env after another, each phase lane by lane
   switch (mb) {
 #define MB_CASE(n)                                                   \
-  case n:                                                            \
-    for (int b = 0; b < B; ++b) magical::control_step_env<n>(a, b); \
-    return 0;
+  case n: {                                                          \
+    magical::WarpEnv<n>* e = new magical::WarpEnv<n>;               \
+    for (int b = 0; b < B; ++b) magical::control_step_warp<n>(a, b, *e, 0); \
+    delete e;                                                        \
+    return 0;                                                        \
+  }
     MB_CASE(1)
     MB_CASE(3)
     MB_CASE(4)
@@ -70,22 +124,50 @@ namespace {
 
 using namespace magical_render;
 
-// The host loop of render_lo.cu / render_hi.cu: stage each env's display
-// list as the kernels stage it in shared memory, then shade every output
-// pixel (lo: shade_pixel; hi: shade_pixel_hi, the camera on the 4x grid).
-template <bool HI>
-int render_frame(const RenderArgs& a) {
+// The host loop of render_hi.cu: stage each env's display list as the
+// kernel stages it in shared memory, then shade every output pixel
+// (shade_pixel_hi, the camera on the 4x grid).
+int render_hi(const RenderArgs& a) {
   if (a.P > MAX_PRIMS) return 1;
   static Prim prims[MAX_PRIMS];
   for (int b = 0; b < a.B; ++b) {
     for (int i = 0; i < a.P; ++i) load_prim(a, b, i, prims[i]);
     const Camera cam = env_camera(a, b);
-    for (int pix = 0; pix < a.res * a.res; ++pix) {
-      unsigned char* rgb = a.out + ((size_t)b * a.res * a.res + pix) * 3;
-      if (HI)
-        shade_pixel_hi(prims, a.P, cam, pix / a.res, pix % a.res, rgb);
-      else
-        shade_pixel(prims, a.P, cam, pix / a.res, pix % a.res, rgb);
+    for (int pix = 0; pix < a.res * a.res; ++pix)
+      shade_pixel_hi(prims, a.P, cam, pix / a.res, pix % a.res,
+                     a.out + ((size_t)b * a.res * a.res + pix) * 3);
+  }
+  return 0;
+}
+
+// The loop of render_lo.cu's tiled kernel: per env and tile (ragged at the
+// frame's edge), the prims that meet the tile (slots 0 and 1 always), in
+// display order, staged as the kernel stages them (K2/K3: built from the
+// state; K5: from the batched list), then the tile's pixels over them.
+template <class A>
+int render_lo_tiles(const A& a, int row_tile, int col_tile) {
+  if (a.P > MAX_PRIMS || row_tile <= 0 || col_tile <= 0) return 1;
+  static Prim kept[MAX_PRIMS];
+  for (int b = 0; b < a.B; ++b) {
+    const Camera cam = env_camera(a, b);
+    for (int r0 = 0; r0 < a.res; r0 += row_tile) {
+      for (int c0 = 0; c0 < a.res; c0 += col_tile) {
+        const int rows = row_tile < a.res - r0 ? row_tile : a.res - r0;
+        const int cols = col_tile < a.res - c0 ? col_tile : a.res - c0;
+        int n = 0;
+        for (int i = 0; i < a.P; ++i) {
+          Prim p;
+          stage_prim(a, b, i, p);
+          if (i < 2 || prim_meets_tile(p, cam, r0, rows, c0, cols))
+            kept[n++] = p;
+        }
+        for (int q = 0; q < rows * cols; ++q) {
+          const int row = r0 + q / cols, col = c0 + q % cols;
+          shade_pixel(kept, n, cam, row, col,
+                      a.out + ((size_t)b * a.res * a.res + row * a.res +
+                               col) * 3);
+        }
+      }
     }
   }
   return 0;
@@ -104,42 +186,69 @@ int render_frame(const RenderArgs& a) {
   make_render_args(verts, nv, radius, color, active, kind, lw, pos, angle, \
                    out, B, P, res, nb, cam_res, ego, scale, half, npx,     \
                    npy, lw_scale, two_scale, bg0, bg1, bg2)
+#define SCENE_ARGS                                                          \
+  const void *pos, const void *angle, const void *block_shape,             \
+      const void *block_colour, const void *block_active,                  \
+      const void *goal_xyhw, const void *goal_colour,                      \
+      const void *goal_active, const void *prog_i, const void *prog_f,     \
+      const void *tab_f, const void *tab_i, void *out, int B, int P,       \
+      int res, int nb, int mb, int mg, int ego, float scale, float half,   \
+      float npx, float npy, float lw_scale, float two_scale, float bg0,    \
+      float bg1, float bg2
+#define SCENE_PASS                                                          \
+  make_scene_args(pos, angle, block_shape, block_colour, block_active,     \
+                  goal_xyhw, goal_colour, goal_active, prog_i, prog_f,     \
+                  tab_f, tab_i, out, B, P, res, nb, mb, mg, ego, scale,    \
+                  half, npx, npy, lw_scale, two_scale, bg0, bg1, bg2)
 
-extern "C" int render_lo_frame(RENDER_ARGS, void* stream) {
-  return render_frame<false>(RENDER_PASS(res));
+extern "C" int render_program_layout(int* out) {
+  out[0] = PROG_I;
+  out[1] = PROG_F;
+  out[2] = TF_SIZE;
+  out[3] = TI_SIZE;
+  return 0;
 }
 
-extern "C" int render_hi_frame(RENDER_ARGS, void* stream) {
-  return render_frame<true>(RENDER_PASS(4 * res));
+// K2/K3: a frame built from the state, over (row_tile x col_tile) tiles.
+extern "C" int render_lo_frame(SCENE_ARGS, int row_tile, int col_tile,
+                               void* stream) {
+  return render_lo_tiles(SCENE_PASS, row_tile, col_tile);
 }
 
-// K5's loop: per env and tile, the prims that meet the tile (slots 0 and 1
-// always), in display order, then the tile's pixels over them alone.
-extern "C" int render_lo_tiles2d(RENDER_ARGS, int row_tile, int col_tile,
-                                 void* stream) {
-  const RenderArgs a = RENDER_PASS(res);
-  if (P > MAX_PRIMS || res % row_tile != 0 || res % col_tile != 0) return 1;
-  static Prim kept[MAX_PRIMS];
+// build_prim's display list of every env, field by field: verts (B, P, NV,
+// 2), nv (B, P), radius (B, P), colour (B, P, 3), active (B, P) as 0 / 1;
+// `out` and the camera are unused.
+extern "C" int render_build_display(SCENE_ARGS, void* verts, void* nv,
+                                    void* radius, void* color,
+                                    void* active) {
+  const SceneArgs a = SCENE_PASS;
   for (int b = 0; b < B; ++b) {
-    const Camera cam = env_camera(a, b);
-    for (int r0 = 0; r0 < res; r0 += row_tile) {
-      for (int c0 = 0; c0 < res; c0 += col_tile) {
-        int n = 0;
-        for (int i = 0; i < P; ++i) {
-          Prim p;
-          load_prim(a, b, i, p);
-          if (i < 2 || prim_meets_tile(p, cam, r0, row_tile, c0, col_tile))
-            kept[n++] = p;
-        }
-        for (int q = 0; q < row_tile * col_tile; ++q) {
-          const int row = r0 + q / col_tile, col = c0 + q % col_tile;
-          shade_pixel(kept, n, cam, row, col,
-                      a.out + ((size_t)b * res * res + row * res + col) * 3);
-        }
-      }
+    for (int i = 0; i < P; ++i) {
+      Prim p;
+      build_prim(a, b, i, p);
+      const size_t q = (size_t)b * P + i;
+      memcpy((float*)verts + q * NV * 2, p.v, sizeof p.v);
+      ((int*)nv)[q] = p.nv;
+      ((float*)radius)[q] = p.rad;
+      memcpy((float*)color + q * 3, p.col, sizeof p.col);
+      ((int*)active)[q] = p.active ? 1 : 0;
     }
   }
   return 0;
+}
+
+extern "C" int render_hi_frame(RENDER_ARGS, void* stream) {
+  return render_hi(RENDER_PASS(4 * res));
+}
+
+// K5: the batched list over (row_tile x col_tile) tiles, each of which
+// divides res.
+extern "C" int render_lo_tiles2d(RENDER_ARGS, int row_tile, int col_tile,
+                                 void* stream) {
+  if (row_tile <= 0 || col_tile <= 0 || res % row_tile != 0 ||
+      res % col_tile != 0)
+    return 1;
+  return render_lo_tiles(RENDER_PASS(res), row_tile, col_tile);
 }
 
 // Each prim's screen box (B, P, 4) and whether it could be bounded (B, P),

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: ragged batch sizes, the wrappers' input checks, the ring-slot
 write, the hi render at 96² and 384², the control step at every block
-count, the renders (2-D tiled too) at 138 display prims, and the slices on
-CUDA against the same slices on the CPU.
+count, the renders (2-D tiled too) at 138 display prims, the slices on
+CUDA against the same slices on the CPU, the lo renders building the
+display list of every family on the card, a lo step that copies nothing
+from the host, and the control step giving the same bits twice.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -279,3 +281,68 @@ def test_render_kernels_at_138_prims(cuda, view):
                                       fidelity='hi', static_shapes=ss)[view])
     with pytest.raises(ValueError, match='divide'):
         render_kernel.render_views_lo(st, *args, tiles2d=(20, 16))
+
+
+@pytest.mark.parametrize('family', ['MoveToCorner', 'MoveToRegion']
+                         + FAMILY_IDS)
+@pytest.mark.parametrize('variant', ['Demo', 'TestAll'])
+def test_lo_render_kernels_build_every_display_list(cuda, family, variant):
+    """K2 and K3 build each env's display list on the card from the state:
+    within a level of the plain lo render on Demo and TestAll states of
+    all eight families, allo and ego."""
+    env = BatchedEnv(f'{family}-{variant}-LoRes4E-v0', device=cuda)
+    carry, _ = env.reset(5, 16)
+    carry, *_ = env.step(carry, torch.arange(16, device=cuda) % 18)
+    st = carry.state
+    args, ss = env._render_args(), env.static_shapes
+    for view in ('allo', 'ego'):
+        plain = render.render_views(st, *args, views=(view,), fidelity='lo',
+                                    static_shapes=ss)[view]
+        k3 = render_kernel.render_views_lo(st, *args, views=(view,),
+                                           static_shapes=ss)[view]
+        spec = preproc.PreprocSpec(None, **{f'{view}_frames': 4})
+        ring = torch.zeros((4, 16, 96, 96, 3), dtype=torch.uint8,
+                           device=cuda)
+        render_kernel.render_into_slots(st, {view: ring}, 1, *args, spec,
+                                        static_shapes=ss)
+        for got in (k3, ring[1]):
+            assert int((got.int() - plain.int()).abs().max()) <= MAX_LEVELS
+
+
+def test_lo_step_copies_nothing_from_the_host(cuda):
+    """A lo step of the main path (K1, K2, the observation, the score)
+    makes no host-to-device copy: the render builds its display list on
+    the card from a display program cached per scene."""
+    from torch.profiler import ProfilerActivity, profile
+    env = BatchedEnv(NAME, device=cuda)
+    carry, _ = env.reset(0, 64)
+    act = torch.zeros(64, dtype=torch.int32, device=cuda)
+    for _ in range(2):
+        carry, *_ = env.step(carry, act)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            carry, *_ = env.step(carry, act)
+        torch.cuda.synchronize()
+    h2d = sum(e.count for e in prof.key_averages() if 'HtoD' in e.key)
+    assert h2d == 0
+
+
+@pytest.mark.parametrize('family', FAMILY_IDS[:1] + FAMILY_IDS[-2:])
+def test_control_step_kernel_gives_the_same_bits_twice(cuda, family):
+    """One warp per env, per-body sums in a fixed order, no float atomics:
+    two runs on the same inputs give the same bits, counting the cycles
+    of each phase or not."""
+    _, st, act = _family_states(cuda, family, 64, 2)
+    clock = torch.zeros((64, len(physics_kernel.PHASES)), dtype=torch.int64,
+                        device=cuda)
+    one = physics_kernel.control_step(st.clone(), act)
+    two = physics_kernel.control_step(st.clone(), act, phase_clock=clock)
+    torch.cuda.synchronize()
+    for f, _, _ in physics_kernel._fields(st.max_blocks):
+        assert torch.equal(getattr(one, f), getattr(two, f)), f
+    assert bool((clock > 0).all())
+    with pytest.raises(ValueError, match='phase_clock'):
+        physics_kernel.control_step(st.clone(), act,
+                                    phase_clock=clock.int())

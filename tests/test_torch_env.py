@@ -2,6 +2,7 @@
 and what the port refuses or does without a GPU."""
 
 import functools
+import inspect
 import os
 import shutil
 import subprocess
@@ -65,7 +66,7 @@ def _assert_obs_close(jo, to):
 @pytest.mark.parametrize('name', ['MoveToCorner-Demo-LoRes4E-v0',
                                   'MoveToCorner-Demo-LoRes3EA-v0'])
 def test_batched_env_matches_reference(name):
-    je, te = _jax_env(name), BatchedEnv(name)
+    je, te = _jax_env(name), BatchedEnv(name, device='cpu')
     jc, jo = je.reset(jax.random.split(jax.random.PRNGKey(0), B))
     tc, to = te.reset(0, B)
     _assert_obs_close(jo, to)
@@ -84,7 +85,7 @@ def test_batched_env_matches_reference(name):
 
 def test_last_step_is_done_with_the_reference_score():
     name = 'MoveToCorner-Demo-LoRes4E-v0'
-    je, te = _jax_env(name), BatchedEnv(name)
+    je, te = _jax_env(name), BatchedEnv(name, device='cpu')
     jc, _ = je.reset(jax.random.split(jax.random.PRNGKey(0), B))
     tc, _ = te.reset(0, B)
     # t = 79, and the block moved towards the corner so that the score
@@ -114,7 +115,7 @@ def test_other_preprocessors_reset_and_step():
     LoRes4E in their own layouts (their byte layout against the reference
     is held by tests/test_torch_render.py)."""
     def run(name):
-        env = BatchedEnv(f'MoveToCorner-Demo-{name}-v0')
+        env = BatchedEnv(f'MoveToCorner-Demo-{name}-v0', device='cpu')
         carry, obs = env.reset(0, B)
         out = [obs]
         for _ in range(5):
@@ -139,7 +140,7 @@ def test_rollout_and_cpu_path_launch_nothing():
     physics_kernel.control_step.launches = 0
     render_kernel.render_into_slots.launches = 0
     render_kernel.render_views_lo.launches = 0
-    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0')
+    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0', device='cpu')
     carry, obs = env.reset(torch.Generator().manual_seed(1), 2)
 
     def policy(obs, gen):
@@ -166,7 +167,7 @@ def test_hi_slice_from_a_converted_reference_state():
     envs then stay calm and free of contacts."""
     name = 'MoveToCorner-TestAll-LoRes4E-v0'
     je = JaxEnv(name, fidelity='hi')
-    te = BatchedEnv(name, fidelity='hi')
+    te = BatchedEnv(name, fidelity='hi', device='cpu')
     jc, _ = je.reset(jax.random.split(jax.random.PRNGKey(4), B))
     jc, *_ = je.step(jc, jnp.asarray(STEADY))
     nudged = jc.replace(state=nudge_pos(jc.state))
@@ -200,7 +201,7 @@ def test_raw_and_debug_reward_ids():
     debug shaping."""
     for name in ('MoveToRegion-TestLayout-v0',
                  'MoveToCorner-Demo-DebugReward-LoRes4E-v0'):
-        env = BatchedEnv(name)
+        env = BatchedEnv(name, device='cpu')
         carry, obs = env.reset(0, 2)
         assert carry.frames == {} and set(obs) == {'allo', 'ego'}
         carry, obs, rew, done, _ = env.step(carry, torch.zeros(
@@ -231,8 +232,8 @@ def _in_space(space, obs, i):
     ('ClusterShape-Demo-LoRes4E-v0', {'fidelity': 'hi'}),
 ])
 def test_outside_the_slice_raises(name, kw):
-    env = BatchedEnv(name, **kw)
-    made = registry.make(name, batched=True, **kw)
+    env = BatchedEnv(name, device='cpu', **kw)
+    made = registry.make(name, batched=True, device='cpu', **kw)
     assert type(made) is BatchedEnv and made.task is env.task
     assert env.fidelity == kw.get('fidelity', 'lo')
     carry, obs = env.reset(3, 2)
@@ -242,25 +243,47 @@ def test_outside_the_slice_raises(name, kw):
     assert all(_in_space(env.observation_space, obs, i) for i in (0, 1))
     assert carry.t == 2 and not bool(done.any())
     assert torch.equal(info['eval_score'], torch.zeros(2))
-    gym = registry.make(name, **kw)
+    gym = registry.make(name, device='cpu', **kw)
     assert gym.observation_space.contains(gym.reset())
 
 
 def test_what_the_slice_still_refuses():
     with pytest.raises(ValueError, match='fidelity'):
-        BatchedEnv('ClusterShape-Demo-LoRes4E-v0', fidelity='mid')
+        BatchedEnv('ClusterShape-Demo-LoRes4E-v0', fidelity='mid',
+                   device='cpu')
     with pytest.raises(KeyError):
         registry.make('ClusterShape-Demo-LoRes5E-v0')
-    env = BatchedEnv('ClusterShape-Demo-LoRes4E-v0')
+    env = BatchedEnv('ClusterShape-Demo-LoRes4E-v0', device='cpu')
     carry, _ = env.reset(0, 1)
     with pytest.raises(ValueError, match='divide'):
         render_kernel.render_views_lo(carry.state, 10, 1, False,
                                       tiles2d=(20, 16))
 
 
+def test_entry_points_default_to_the_card():
+    """BatchedEnv, the Gym adapter and registry.make run on the CUDA
+    device unless asked for the CPU; without a card they raise rather than
+    fall back to it."""
+    from magical_tpu_torch.api.gym_env import MagicalGymEnv
+    name = 'MoveToCorner-Demo-LoRes4E-v0'
+    for fn in (BatchedEnv.__init__, MagicalGymEnv.__init__):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    makers = (lambda: BatchedEnv(name), lambda: MagicalGymEnv(name),
+              lambda: registry.make(name),
+              lambda: registry.make(name, batched=True))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == 'cuda'
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    assert BatchedEnv(name, device='cpu').device.type == 'cpu'
+    assert registry.make(name, device='cpu').device.type == 'cpu'
+
+
 def test_lockstep_check(monkeypatch):
     monkeypatch.setenv('MAGICAL_TPU_DEBUG_LOCKSTEP', '1')
-    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0')
+    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0', device='cpu')
     carry, _ = env.reset(0, 2)
     carry, *_ = env.step(carry, torch.zeros(2, dtype=torch.int32))
     carry.state.t[0] += 1

@@ -1,5 +1,5 @@
 """magical_tpu_torch's batch-1 Gym adapter and its gymnasium shim, on the
-CPU (the plain versions of the kernels)."""
+CPU (the plain versions of the kernels, with ``device='cpu'``)."""
 
 import pickle
 
@@ -21,7 +21,7 @@ def _to_last_step(env):
 
 
 def test_adapter_reset_step_score_and_end():
-    env = registry.make(NAME)
+    env = registry.make(NAME, device='cpu')
     assert env.seed(5) == [5]
     obs = env.reset()
     assert obs.shape == (96, 96, 12) and obs.dtype == np.uint8
@@ -37,7 +37,7 @@ def test_adapter_reset_step_score_and_end():
 
 
 def test_adapter_pickles_mid_episode():
-    env = registry.make(NAME)
+    env = registry.make(NAME, device='cpu')
     env.seed(11)
     env.reset()
     for a in (4, 7, 2):
@@ -54,7 +54,7 @@ def test_adapter_pickles_mid_episode():
 
 
 def test_adapter_raw_observations_render_and_entity_spec(capsys):
-    env = registry.make('MoveToCorner-TestAll-v0')
+    env = registry.make('MoveToCorner-TestAll-v0', device='cpu')
     env.seed(2)
     obs = env.reset()
     assert set(obs) == {'allo', 'ego'}
@@ -73,7 +73,8 @@ def test_adapter_raw_observations_render_and_entity_spec(capsys):
 
 
 def test_debug_reward_ids_reward_the_shaping():
-    env = registry.make('MoveToCorner-Demo-DebugReward-LoRes4E-v0')
+    env = registry.make('MoveToCorner-Demo-DebugReward-LoRes4E-v0',
+                        device='cpu')
     env.seed(0)
     obs = env.reset()
     assert set(obs) == {'allo', 'ego'}            # raw, as registered
@@ -84,7 +85,7 @@ def test_debug_reward_ids_reward_the_shaping():
 def test_gymnasium_shim():
     gymnasium = pytest.importorskip('gymnasium')
     registry.register_envs()
-    env = gymnasium.make(gym_interop.gym_id(NAME))
+    env = gymnasium.make(gym_interop.gym_id(NAME), device='cpu')
     assert isinstance(env.action_space, gymnasium.spaces.Discrete)
     obs, info = env.reset(seed=7)
     assert obs.shape == (96, 96, 12) and info == {}
@@ -100,7 +101,7 @@ def test_gymnasium_shim():
 
 
 def test_adapter_state_is_numpy_and_restores_onto_its_device():
-    env = registry.make(NAME)
+    env = registry.make(NAME, device='cpu')
     env.seed(1)
     env.reset()
     st = env.__getstate__()

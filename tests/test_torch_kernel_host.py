@@ -48,14 +48,19 @@ def host_lib(tmp_path_factory):
     # the arguments of the kernel's per-block-count entry points
     sigs = dict(_build.SIGNATURES, physics_control_step=_build.SIGNATURES[
         'physics_control_step_mb1'])
+    P = ctypes.c_void_p
+    sigs['render_build_display'] = sigs['render_lo_frame'][:-3] + [P] * 5
+    sigs['render_prim_bboxes'] = sigs['render_lo_tiles2d'][:-3] + [P] * 2
+    sigs['render_set_trig'] = [P] * 3 + [ctypes.c_int]
     for name in ('physics_table_layout', 'physics_control_step',
-                 'render_lo_frame', 'render_hi_frame', 'render_lo_tiles2d'):
+                 'render_program_layout', 'render_lo_frame',
+                 'render_build_display', 'render_hi_frame',
+                 'render_lo_tiles2d', 'render_prim_bboxes',
+                 'render_set_trig'):
         fn = getattr(lib, name)
         fn.argtypes = sigs[name]
         fn.restype = ctypes.c_int
-    lib.render_prim_bboxes.argtypes = \
-        _build.SIGNATURES['render_lo_frame'][:-1] + [ctypes.c_void_p] * 2
-    lib.render_prim_bboxes.restype = ctypes.c_int
+    lib.render_trig_misses.restype = ctypes.c_long
     return lib
 
 
@@ -127,26 +132,124 @@ def test_physics_kernel_arithmetic_matches_plain(host_lib):
     assert n_contact > 0
 
 
+def _torch_trig(host_lib, st):
+    """Hand the host build PyTorch's CPU cos and sin of every angle that
+    build_prim and the camera take: each body's, and each pupil's relative
+    to the robot's."""
+    x = torch.cat([st.angle.reshape(-1), st.angle[:, 3] - st.angle[:, 0],
+                   st.angle[:, 4] - st.angle[:, 0]]).contiguous()
+    c, s = torch.cos(x), torch.sin(x)
+    assert host_lib.render_set_trig(x.data_ptr(), c.data_ptr(),
+                                    s.data_ptr(), x.numel()) == 0
+    return (x, c, s)                 # kept alive while the host reads them
+
+
+def _scene_args(st, prog, out, res, view):
+    """The arguments of K2/K3's entry points (render_lo_frame) but the
+    tile and the stream."""
+    fields = [getattr(st, name).contiguous()
+              for name, _ in render_kernel._SCENE_FIELDS]
+    ptrs = [x.data_ptr() for x in fields + [torch.from_numpy(a)
+                                            for a in prog] + [out]]
+    return fields, ptrs + [st.batch, prog[0].shape[0], res, st.n_bodies,
+                           st.max_blocks, st.goal_xyhw.shape[1],
+                           *render_kernel.camera_args(view, res)]
+
+
+def _scene_frame(host_lib, st, scene, ss, view, res=96, tile=(32, 32)):
+    """K2/K3's frame of `st`, built for the host from the display program
+    of `scene` = (max_blocks, max_goals, robot_first)."""
+    prog = render_kernel.program_arrays(*scene, ss)
+    out = torch.empty((st.batch, res, res, 3), dtype=torch.uint8)
+    keep = _torch_trig(host_lib, st)
+    fields, args = _scene_args(st, prog, out, res, view)
+    assert host_lib.render_lo_frame(*args, *tile, None) == 0
+    assert host_lib.render_trig_misses() == 0
+    del keep, fields
+    return out
+
+
 @pytest.mark.parametrize('view', ['allo', 'ego'])
 def test_render_kernel_arithmetic_matches_plain(host_lib, view):
+    """K2/K3, built for the host: the display list built from the state,
+    culled by tiles and composited, byte-equal to the plain lo render
+    (MoveToCorner-Demo with an active goal for the stippled outline), for
+    the kernels' tiles, smaller and ragged ones, and one tile a frame."""
     st, _ = _rollout(8, 4, 3)[-1]
-    # an active goal as well, for the stippled outline
     st.goal_active[:, 0] = True
     st.goal_xyhw[:, 0] = torch.tensor([-0.4, 0.3, 0.6, 0.5])
-    disp = render_kernel.kernel_display(st, 1, 1, True, SS)
-    out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
-    ptrs = [disp[k].data_ptr() for k in
-            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
-    ptrs += [st.pos.data_ptr(), st.angle.data_ptr(), out.data_ptr()]
-    rc = host_lib.render_lo_frame(
-        *ptrs, st.batch, disp['nv'].shape[1], 96, st.n_bodies,
-        *render_kernel.camera_args(view, 96), None)
-    assert rc == 0
     plain = render.render_views(st, 1, 1, True, views=(view,),
                                 fidelity='lo', static_shapes=SS)[view]
-    # same operations in the same order, rounded one by one: byte-equal
-    assert torch.equal(out, plain)
+    for tile in (render_kernel.LO_TILE, (16, 16), (40, 28), (96, 96)):
+        out = _scene_frame(host_lib, st, (1, 1, True), SS, view, tile=tile)
+        # same operations in the same order, rounded one by one
+        assert torch.equal(out, plain), tile
     assert np.unique(plain.numpy()).size > 20
+
+
+FAMILIES8 = ['MoveToCorner', 'MoveToRegion', 'FixColour', 'MakeLine',
+             'FindDupe', 'MatchRegions', 'ClusterColour', 'ClusterShape']
+
+
+def _family_scene(task, variant, seed, B=4):
+    """A `variant` reset of `task`, every body moved and turned at
+    random, with its scene (max_blocks, max_goals, robot_first) and static
+    block shapes."""
+    t = ALL_TASKS[task]
+    flags = t.flags_for(variant)
+    st = t.reset_fn(torch.Generator().manual_seed(seed), B, flags, 'cpu')
+    rng = np.random.default_rng(seed)
+    st.pos += torch.from_numpy(rng.normal(0.0, 0.1, st.pos.shape)
+                               .astype(np.float32))
+    st.angle = torch.from_numpy(rng.uniform(-np.pi, np.pi, st.angle.shape)
+                                .astype(np.float32))
+    return st, (t.max_blocks, t.max_goals, task == 'MoveToCorner'), \
+        t.static_block_shapes(flags)
+
+
+@pytest.mark.parametrize('task', FAMILIES8)
+def test_build_prim_matches_build_display_list(host_lib, task):
+    """build_prim (csrc/render_lo.cuh), built for the host, from the state
+    and the display program: field by field equal to the plain
+    build_display_list on a Demo and a TestAll state of every family."""
+    got = (ctypes.c_int * 4)()
+    host_lib.render_program_layout(got)
+    for variant, seed in (('Demo', 1), ('TestAll', 2)):
+        st, scene, ss = _family_scene(task, variant, seed)
+        prog = render_kernel.program_arrays(*scene, ss)
+        assert tuple(got) == (render_kernel.PROG_I, render_kernel.PROG_F,
+                              prog[2].size, prog[3].size)
+        want = render.build_display_list(st, *scene, static_shapes=ss)
+        B, P = st.batch, prog[0].shape[0]
+        assert want['nv'].shape == (B, P)
+        out = dict(verts=torch.empty((B, P, render.NV, 2)),
+                   nv=torch.empty((B, P), dtype=torch.int32),
+                   radius=torch.empty((B, P)), color=torch.empty((B, P, 3)),
+                   active=torch.empty((B, P), dtype=torch.int32))
+        keep = _torch_trig(host_lib, st)
+        frame = torch.empty((B, 96, 96, 3), dtype=torch.uint8)
+        fields, args = _scene_args(st, prog, frame, 96, 'ego')
+        assert host_lib.render_build_display(
+            *args, *(out[k].data_ptr() for k in ('verts', 'nv', 'radius',
+                                                 'color', 'active'))) == 0
+        assert host_lib.render_trig_misses() == 0
+        del keep, fields
+        for k in ('verts', 'nv', 'radius', 'color'):
+            assert torch.equal(out[k], want[k]), (variant, k)
+        assert torch.equal(out['active'].bool(), want['active']), variant
+        assert bool(want['active'].any(1).all())
+
+
+@pytest.mark.parametrize('task,variant', [('MoveToCorner', 'Demo'),
+                                          ('ClusterColour', 'TestAll')])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_scene_render_matches_plain(host_lib, task, variant, view):
+    """K2/K3 from the state, built for the host, byte-equal to the plain
+    lo render: the main path's scene (20 prims) and the widest (138)."""
+    st, scene, ss = _family_scene(task, variant, 3, B=3)
+    plain = render.render_views(st, *scene, views=(view,), fidelity='lo',
+                                static_shapes=ss)[view]
+    assert torch.equal(_scene_frame(host_lib, st, scene, ss, view), plain)
 
 
 @pytest.mark.parametrize('view', ['allo', 'ego'])
@@ -178,7 +281,7 @@ def test_hi_render_kernel_arithmetic_matches_plain(host_lib, view):
 @pytest.mark.parametrize('task', ['FixColour', 'MakeLine', 'FindDupe',
                                   'MatchRegions', 'ClusterColour'])
 def test_physics_kernel_arithmetic_at_every_block_count(host_lib, task):
-    """control_step_env<MB> at the families' block counts (3, 4, 7, 8, 10),
+    """control_step_warp<MB> at the families' block counts (3, 4, 7, 8, 10),
     from TestAll resets (every block shape) after a few random steps:
     one substep to rounding, one control step to the median env."""
     t = ALL_TASKS[task]
@@ -210,8 +313,8 @@ def test_physics_kernel_arithmetic_at_every_block_count(host_lib, task):
     assert torch.equal(sk.t, sp.t)
     # a block count the kernel is not built for
     assert host_lib.physics_control_step(
-        *physics_kernel.kernel_args(sk, a, ftab, itab)[:-4], B, 2, 1, 1,
-        None) != 0
+        *physics_kernel.kernel_args(sk, a, ftab, itab)[:-5], B, 2, 1, 1,
+        None, None) != 0
 
 
 def _host_render_args(disp, st, out, res, view):
@@ -270,3 +373,54 @@ def test_tiles2d_kernel_arithmetic_matches_plain(host_lib, task, view):
     out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
     assert host_lib.render_lo_tiles2d(
         *_host_render_args(disp, st, out, 96, view), 7, 16, None) != 0
+
+
+# After 5 control steps the solver's chaos has grown the last-ulp
+# differences in some envs: chip_smoke.py's floors (PHYS_FLOOR), against
+# which the median env is held unless the plain version's own divergence
+# from 1-ulp-nudged positions is larger (then twice that).
+FIVE_STEP_FLOOR = {'pos': 1e-4, 'angle': 1e-4, 'vel': 1e-3, 'omega': 1e-3,
+                   'con_jn': 1e-3, 'con_jt': 1e-3, 'joint_acc': 1e-3}
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'MakeLine',
+                                  'ClusterColour'])
+def test_warp_control_step_matches_plain_over_steps(host_lib, task):
+    """The one-warp-per-env control step (control_step_warp, each phase
+    run lane by lane) at mb = 1, 4 and 10, from TestAll resets after two
+    random steps, against the plain version: after 1 control step the
+    median env within STEP_MEDIAN_ATOL in every field, after 5 within
+    FIVE_STEP_FLOOR or twice the plain version's own 1-ulp divergence;
+    the step counters equal; and two runs give the same bits."""
+    t = ALL_TASKS[task]
+    ftab, itab, _ = physics_kernel.table_arrays(t.max_blocks)
+    ftab, itab = torch.from_numpy(ftab), torch.from_numpy(itab)
+    B = 8
+    st = t.reset_fn(torch.Generator().manual_seed(4), B,
+                    t.flags_for('TestAll'), 'cpu')
+    rng = np.random.default_rng(t.max_blocks)
+    acts = torch.from_numpy(rng.integers(0, 18, (7, B)).astype(np.int32))
+    for a in acts[:2]:
+        st = physics.control_step(st, a)
+    sk, sp = st.clone(), st
+    sc = st.replace(pos=torch.nextafter(st.pos, torch.full_like(
+        st.pos, float('inf'))))
+    for n, a in enumerate(acts[2:], 1):
+        again = _kernel_step(host_lib, sk, a, ftab, itab, C.PHYS_STEPS)
+        sk = _kernel_step(host_lib, sk, a, ftab, itab, C.PHYS_STEPS)
+        sp = physics.control_step(sp, a)
+        sc = physics.control_step(sc, a)
+        assert all(torch.equal(getattr(again, f), getattr(sk, f))
+                   for f in ('pos', 'angle', 'con_id') + FIELDS)
+        if n == 1:
+            for f in ('pos', 'angle') + FIELDS:
+                err = (getattr(sk, f) - getattr(sp, f)).abs() \
+                    .reshape(B, -1).amax(1)
+                assert float(err.median()) <= STEP_MEDIAN_ATOL, (n, f)
+        if n == 5:
+            for f, floor in FIVE_STEP_FLOOR.items():
+                err, chaos = ((getattr(x, f) - getattr(sp, f)).abs()
+                              .reshape(B, -1).amax(1) for x in (sk, sc))
+                assert float(err.median()) <= max(
+                    floor, 2 * float(chaos.median())), (n, f)
+        assert torch.equal(sk.t, sp.t)

@@ -44,7 +44,7 @@ def _same_space(a, b):
 def test_spaces_equal_the_reference(preproc):
     suffix = f'-{preproc}' if preproc else ''
     name = f'MoveToRegion-TestAll{suffix}-v0'
-    je, te = JaxEnv(name), BatchedEnv(name)
+    je, te = JaxEnv(name), BatchedEnv(name, device='cpu')
     _same_space(te.observation_space, je.observation_space)
     _same_space(te.action_space, je.action_space)
     obs = te.observation_space.sample(np.random.RandomState(0))
@@ -52,11 +52,12 @@ def test_spaces_equal_the_reference(preproc):
 
 
 def test_make_returns_the_adapter_or_the_batched_env():
-    env = registry.make('MoveToCorner-TestShape-LoRes4A-v0')
+    env = registry.make('MoveToCorner-TestShape-LoRes4A-v0',
+                        device='cpu')
     assert type(env).__name__ == 'MagicalGymEnv'
     assert env.observation_space.shape == (96, 96, 12)
     benv = registry.make('MoveToCorner-TestShape-LoRes4A-v0', batched=True,
-                         fidelity='hi')
+                         fidelity='hi', device='cpu')
     assert isinstance(benv, BatchedEnv) and benv.fidelity == 'hi'
     with pytest.raises(KeyError):
         registry.make('MoveToCorner-TestLayout-v0')
