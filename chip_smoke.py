@@ -17,14 +17,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                families (3 to 10 blocks, up to 138 display prims): the
                control step (1 and 5 steps; and twice on the same inputs,
                which must give the same bits), the lo render into a ring
-               slot and into a fresh frame (each building the display
-               list on the card from the state), the 2-D tiled lo render
+               slot and into a fresh frame, the 2-D tiled lo render
                (tiles of 16² and 32², byte-equal to the plain lo render
                and to the fresh-frame kernel) and, on the Test states, the
                hi render into a ring slot and into a fresh frame (allo and
-               ego views); the hi and the tiled lo render at 384² on 4
-               MoveToRegion-TestAll and 4 ClusterColour-TestAll states;
-               and the slice on the card against the slice on the CPU.
+               ego views), every render building the display list on the
+               card from the state; the hi and the tiled lo render at 384²
+               on 4 MoveToRegion-TestAll and 4 ClusterColour-TestAll
+               states; and the slice on the card against the slice on the
+               CPU.
   4. main    — MoveToCorner-Demo-LoRes4E-v0 at 4096 envs: reset, then a
                full 80-step episode with seeded random actions, counting
                kernel launches and timing the steps with CUDA events;
@@ -35,11 +36,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                allo and ego frames).
   5. hi      — MoveToCorner-TestAll-LoRes4E-v0 at hi fidelity, 1024 envs:
                reset and a full 80-step episode through the control step
-               and the hi render, counted and timed as `main` is.
+               and the hi render, counted, timed and traced as `main` is
+               (a host-to-device copy fails the run).
   6. gym     — MoveToRegion-TestAll-v0 through the registry's batch-1 Gym
                adapter at hi fidelity on the card: raw 384² {allo, ego}
-               observations, a full 40-step episode, render() and the
-               end-of-episode score.
+               observations, a full 40-step episode (host clock), render()
+               and the end-of-episode score.
   7. multi   — the six multi-block families at 4096 envs:
                ClusterColour-Demo-LoRes4E-v0 for a whole 240-step episode
                (checked as `main` is, and its last state by
@@ -55,17 +57,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
                1024 envs, 5 + 5 steps.  Every path zeroes the launch
                counts just before it and reads them just after.
   8. times   — each kernel (time_kernel) on the last state of each path
-               that runs it, beside its plain version, the kernel alone
-               and (K4, K5) the display-list build: the control step at
-               every block count (4096 envs; mb 10 on Demo and on TestAll
-               states), with its clock64() cycles per phase; the lo
-               renders (ring slot, fresh frame) on the main path and at
-               138 prims, the fresh frame also over tiles of 16², 32²,
-               48² and 96² (one block a frame); the 2-D tiled lo render
-               at 138 prims (4096 envs); the hi render on the hi path and
-               at 138 prims (1024 envs); and the rest of the lo step, the
-               observation assembly and the score, alone on the main
-               path's and ClusterColour-TestAll's last states.
+               that runs it, beside its plain version and the kernel alone
+               (its display program looked up; K1 its wrapper): the
+               control step at every block count (4096 envs; mb 10 on Demo
+               and on TestAll states), with its clock64() cycles per
+               phase; the lo renders (ring slot, fresh frame) on the main
+               path and at 138 prims, the fresh frame also over tiles of
+               16², 32², 48² and 96² (one block a frame); the 2-D tiled lo
+               render at 138 prims over both tilings of TILES (4096 envs);
+               the hi render on the hi path and at 138 prims (1024 envs),
+               also over output tiles of 8², 16², 32² and 96²; and the
+               rest of the lo step, the observation assembly and the
+               score, alone on the main path's and ClusterColour-TestAll's
+               last states.
 
 Every kernel's line in the JSON table carries its bound: the larger of
 its operations over 67 TFLOP/s (float32, outside the tensor cores) and
@@ -103,6 +107,9 @@ MULTI_EPISODE = 'ClusterColour-Demo-LoRes4E-v0'
 WIDE_NAME = 'ClusterColour-TestAll-LoRes4E-v0'    # 138 display prims
 MULTI_WARM, MULTI_STEPS = 5, 20
 TILES = ((16, 16), (32, 32))
+# The tilings `[times]` runs K3 and K4 alone over (output pixels a block).
+TILINGS = {'K3': ((16, 16), (32, 32), (48, 48), (96, 96)),
+           'K4': ((8, 8), (16, 16), (32, 32), (96, 96))}
 # The H100 SXM's published peaks at 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -278,44 +285,40 @@ def _where64(c, a, b):
                                        device=c.device))
 
 
-def _samples_in(lo, hi, n, sub):
-    """How many of the sample centres (s + 0.5) / sub, 0 <= s < n, lie in
-    [lo, hi] (pixel units)."""
-    first = (lo * sub - 0.5).ceil().clamp(0, n)
-    last = (hi * sub - 0.5).floor().clamp(-1, n - 1)
+def _samples_in(lo, hi, n):
+    """How many of the sample centres s + 0.5, 0 <= s < n, lie in
+    [lo, hi]."""
+    first = (lo - 0.5).ceil().clamp(0, n)
+    last = (hi - 0.5).floor().clamp(-1, n - 1)
     return (last - first + 1).clamp(min=0)
 
 
-def render_work(disp, state, view, res, fidelity='lo', inputs=None):
+def render_work(disp, state, view, res, fidelity, inputs):
     """(operations, bytes, prims per sample) of one view's frames of
     `state` at `res`: the least work that gives them, which is the same
     for every kernel that renders them (K2, K3 and K5 at lo).  Each pixel
     (at hi fidelity each of its 16 subpixels) is composited over the
-    active prims whose cull box holds it (prim_screen_bboxes, K5's box,
-    outside which a prim's lo alpha and hi coverage are exactly 0), each
-    prim at its _prim_ops; the camera and the quantise 22 ops a pixel or
-    subpixel, the 4x4 mean 60 ops a pixel.  Bytes: the display list, the
-    robot pose and the uint8 frames, once each; or, where the kernel
-    reads `inputs` (K2/K3: the state's tensors and the display program)
-    instead of the display list, those and the frames."""
+    active prims whose cull box holds it (prim_screen_bboxes on the
+    sampled grid, outside which a prim's lo alpha and hi coverage are
+    exactly 0), each prim of `disp` (kernel_display's list) at its
+    _prim_ops; the camera and the quantise 22 ops a pixel or subpixel,
+    the 4x4 mean 60 ops a pixel.  Bytes: what the kernel reads, `inputs`
+    (the state's tensors and the display program), and the uint8 frames,
+    once each."""
     import torch
     from magical_tpu_torch.core import render_kernel
-    sub = 4 if fidelity == 'hi' else 1
-    n = res * sub
-    bb, bounded = render_kernel.prim_screen_bboxes(disp, state, view, res)
+    n = res * (4 if fidelity == 'hi' else 1)         # the sampled grid
+    bb, bounded = render_kernel.prim_screen_bboxes(disp, state, view, n)
     bb = bb.double()
-    area = (_samples_in(bb[..., 0], bb[..., 1], n, sub)
-            * _samples_in(bb[..., 2], bb[..., 3], n, sub))
+    area = (_samples_in(bb[..., 0], bb[..., 1], n)
+            * _samples_in(bb[..., 2], bb[..., 3], n))
     area = torch.where(bounded, area, float(n * n)) \
         * disp['active'].double()                           # (B, P)
     per_prim = _prim_ops(disp, hard=fidelity == 'hi')
     ops = float((per_prim * area).sum()) + state.batch * n * n * 22 + (
         state.batch * res * res * 60 if fidelity == 'hi' else 0)
-    nbytes = state.batch * res * res * 3 + (
-        sum(x.nelement() * x.element_size() for x in inputs)
-        if inputs is not None else
-        sum(x.nelement() * x.element_size() for x in disp.values())
-        + state.pos[:, 0].nelement() * 4 + state.angle[:, 0].nelement() * 4)
+    nbytes = state.batch * res * res * 3 + sum(
+        x.nelement() * x.element_size() for x in inputs)
     return ops, nbytes, float(area.sum()) / (state.batch * n * n)
 
 
@@ -753,6 +756,10 @@ def phase_hi(smi):
                   obs[:n, ..., 9:12], plain, 'hi')
     print(f'[hi] obs {tuple(obs.shape)} uint8; done only at t=80; score '
           f'mean {float(score.mean()):.6f} in [0, 1]')
+    carry, _, h2d = report_busy('hi', HI_ENV_NAME, env, carry)
+    if h2d:
+        raise AssertionError(f'hi: {h2d} host-to-device copies a step; the '
+                             f'hi step copies nothing from the host')
     return env, carry, launches['K1'], \
         launches['K4 frame'] + launches['K4 slot'], err, rate
 
@@ -967,8 +974,8 @@ def phase_multi(smi, main_rate):
     # 138 display prims through K2, then K5 on the state it left
     r = drive(WIDE_NAME, MAIN_BATCH, MULTI_WARM + MULTI_STEPS)
     env, carry = r['env'], r['carry']
-    P = render_kernel.kernel_display(carry.state, *env._render_args(),
-                                     env.static_shapes)['nv'].shape[1]
+    P = render_kernel.display_program(*env._render_args(), env.static_shapes,
+                                      DEVICE)[0].shape[0]
     out['K1 launches'][10] += r['launches']['K1']
     carry, _, _ = report_busy('multi', f'{WIDE_NAME} ({P} display prims)',
                               env, carry)
@@ -1000,9 +1007,9 @@ def time_kernel(k, env, carry, tiles=None):
     """Kernel `k` ('K1' to 'K5'; K5 on `tiles`) on the state of `carry`, a
     state of `env`, the ego view at 96² for a render: its wrapper and its
     plain version timed with CUDA events, the kernel alone (a render with
-    its display list built, K1 as its wrapper), the display-list build
-    alone, and the work of the function for its bound (k1_work,
-    render_work).  Returns a dict of them."""
+    its display program looked up, K1 as its wrapper) and, for K3 and K4,
+    alone over each tiling of TILINGS, and the work of the function for
+    its bound (k1_work, render_work).  Returns a dict of them."""
     import torch
     from magical_tpu_torch.core import (physics, physics_kernel, preproc,
                                         render, render_kernel as rk)
@@ -1019,8 +1026,7 @@ def time_kernel(k, env, carry, tiles=None):
         physics_kernel.control_step(state.clone(), act, phase_clock=clock)
         per_env = clock.double().sum(0) / state.batch
         phases = dict(zip(physics_kernel.PHASES, per_env.tolist()))
-        return dict(ms=ms, alone_ms=ms, disp_ms=None, ops=ops, bytes=nbytes,
-                    phases=phases,
+        return dict(ms=ms, alone_ms=ms, ops=ops, bytes=nbytes, phases=phases,
                     plain_ms=cuda_ms(lambda: physics.control_step(state, act),
                                      1))
     args, ss, spec = env._render_args(), env.static_shapes, env.preproc
@@ -1039,7 +1045,7 @@ def time_kernel(k, env, carry, tiles=None):
         plain_ms = cuda_ms(lambda: preproc.push_frames_cf(spec, ring,
                                                           plain(), 7), 1)
         entry = 'render_lo_into_slot' if k == 'K2' else 'render_hi_into_slot'
-        out, extra = ring['ego'][7 % spec.depth('ego')], ()
+        out = ring['ego'][7 % spec.depth('ego')]
     else:
         ms = cuda_ms(lambda: rk.render_views_lo(
             state, *args, views=('ego',), static_shapes=ss, tiles2d=tiles),
@@ -1048,30 +1054,20 @@ def time_kernel(k, env, carry, tiles=None):
         entry = 'render_lo_frame' if k == 'K3' else 'render_lo_tiles2d'
         out = torch.empty((state.batch, 96, 96, 3), dtype=torch.uint8,
                           device=DEVICE)
-        extra = tiles or ()
-    if k in ('K2', 'K3'):
-        # the kernel alone: the display program looked up, the list built
-        # in the kernel; and K3 over each tiling, one block a whole frame
-        # (96 x 96) included
-        prog = rk.display_program(*args, ss, state.device)
-        alone_ms = cuda_ms(lambda: rk._launch_scene(entry, prog, state, out,
-                                                    'ego', 96), 20)
-        tiles_ms = {} if k == 'K2' else {
-            tile: cuda_ms(lambda: rk._launch_scene(
-                entry, prog, state, out, 'ego', 96, tile), 20)
-            for tile in ((16, 16), (32, 32), (48, 48), (96, 96))}
-        disp_ms = None
-        inputs = [getattr(state, f) for f, _ in rk._SCENE_FIELDS] + list(prog)
-    else:
-        alone_ms = cuda_ms(lambda: rk._launch(entry, disp, state, out, 'ego',
-                                              96, *extra), 20)
-        disp_ms = cuda_ms(lambda: rk.kernel_display(state, *args,
-                                                    static_shapes=ss), 10)
-        tiles_ms, inputs = {}, None
+    # the kernel alone: the display program looked up, the list built in
+    # the kernel; and K3 and K4 over each tiling, one block a whole frame
+    # (96 x 96) included
+    prog = rk.display_program(*args, ss, state.device)
+    alone_ms = cuda_ms(lambda: rk._launch_scene(entry, prog, state, out,
+                                                'ego', 96, tiles), 20)
+    tiles_ms = {tile: cuda_ms(lambda: rk._launch_scene(
+        entry, prog, state, out, 'ego', 96, tile), 20)
+        for tile in TILINGS.get(k, ())}
+    inputs = [getattr(state, f) for f, _ in rk._SCENE_FIELDS] + list(prog)
     ops, nbytes, per_sample = render_work(disp, state, 'ego', 96, fidelity,
                                           inputs)
-    return dict(ms=ms, alone_ms=alone_ms, disp_ms=disp_ms, plain_ms=plain_ms,
-                ops=ops, bytes=nbytes, per_sample=per_sample,
+    return dict(ms=ms, alone_ms=alone_ms, plain_ms=plain_ms, ops=ops,
+                bytes=nbytes, per_sample=per_sample,
                 prims=disp['nv'].shape[1], tiles_ms=tiles_ms)
 
 
@@ -1087,9 +1083,7 @@ def phase_times(cases):
             f'{t["per_sample"]:.3f} prims composited a '
             f'{"subpixel" if k == "K4" else "pixel"}'))
         print(f'[times] {label} ({what}): kernel {t["ms"]:.4f} ms'
-              + ('' if k == 'K1' else f' (alone {t["alone_ms"]:.4f} ms'
-                 + ('' if t['disp_ms'] is None else
-                    f', display-list build {t["disp_ms"]:.4f} ms') + ')')
+              + ('' if k == 'K1' else f' (alone {t["alone_ms"]:.4f} ms)')
               + f', plain {t["plain_ms"]:.4f} ms, bound {bound_ms:.5f} ms '
               f'({bound_by})')
         if t.get('phases'):

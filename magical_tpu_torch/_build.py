@@ -37,21 +37,19 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# The render entry points' arguments (csrc/render_lo.cuh SCENE_ARGS): the
+# state's, the program's and the frame's pointers, the sizes and the ego
+# flag, the camera's floats, the tile, the stream.
+_SCENE = [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9 + [_I] * 2 + [_P]
 # C entry points and their argument types.
 SIGNATURES = {
     'physics_table_layout': [_P],
     **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P] * 2
        for mb in (1, 3, 4, 7, 8, 10)},
     'render_program_layout': [_P],
-    'render_lo_into_slot': [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9
-    + [_I] * 2 + [_P],
-    'render_lo_frame': [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9
-    + [_I] * 2 + [_P],
-    'render_lo_tiles2d': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
-    + [_I] * 2 + [_P],
-    'render_hi_into_slot': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9
-    + [_P],
-    'render_hi_frame': [_P] * 10 + [_I] * 5 + [ctypes.c_float] * 9 + [_P],
+    **{entry: _SCENE for entry in (
+        'render_lo_into_slot', 'render_lo_frame', 'render_lo_tiles2d',
+        'render_hi_into_slot', 'render_hi_frame')},
 }
 
 _LIB = None

@@ -14,22 +14,22 @@ The CUDA kernels and their entry points:
     fidelity, fresh frames and ring slots; they replace the hi branch of
     ``render_batch_pallas``, ``_render_kernel_hi`` (:517, ``pl.pallas_call``
     :766);
-  * :func:`render_lo_tiles2d` — K5, fresh lo frames over 2-D pixel tiles
-    that cull the display list by each prim's screen box, reached through
-    ``render_views_lo(tiles2d=(row_tile, col_tile))``; it replaces
-    ``render_batch_pallas(tiles2d=...)``, ``_render_kernel_2d`` (:474,
-    ``pl.pallas_call`` :692).  Its cull is exact, so its frames equal K3's.
+  * :func:`render_lo_tiles2d` — K5, fresh lo frames over the caller's 2-D
+    pixel tiles, reached through ``render_views_lo(tiles2d=(row_tile,
+    col_tile))``; it replaces ``render_batch_pallas(tiles2d=...)``,
+    ``_render_kernel_2d`` (:474, ``pl.pallas_call`` :692).
 
 Their plain version is ``core/render.py``'s ``render_views`` at the same
 fidelity: ``render_frame(aa=True)`` + ``to_uint8`` at lo, and hard
-coverage at 4x, ``to_uint8`` and ``downsample4`` at hi.  K2 and K3 take
-the state itself: each block builds its env's display list in shared
-memory from the state's tensors and the scene's display program
-(:func:`display_program`, made once per scene and device), so a lo step
-builds nothing on the host and copies nothing from it.  K4 and K5 take
-the list the plain, batched ``build_display_list`` makes (as the JAX
-package builds it in XLA), with per-slot kinds and line widths from
-``static_prim_meta``.  Every kernel computes the camera itself.
+coverage at 4x, ``to_uint8`` and ``downsample4`` at hi.  Every kernel
+takes the state itself: each block builds its env's display list in
+shared memory from the state's tensors and the scene's display program
+(:func:`display_program`, made once per scene and device), keeps the
+prims whose screen box (:func:`prim_screen_bboxes`) meets its tile of
+pixels (at hi, of subpixels of the 4x grid) and composites its pixels
+over them, so a render builds nothing on the host and copies nothing
+from it.  The cull is exact: every tiling gives the same bytes.  Every
+kernel computes the camera itself.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ from magical_tpu_torch.core import collision, preproc, render
 from magical_tpu_torch.core.state import EnvState
 
 MAX_PRIMS = 240         # MAX_PRIMS of csrc/render_lo.cuh
-MAX_BATCH = 65535       # grid.y of K4
 
 
 def camera_args(view: str, res: int):
@@ -76,8 +75,10 @@ PROG_I = 8                    # op, idx, table, k, shape, nv, colour table, kind
 PROG_F = 2 * render.NV + 5    # local verts, radius, line width, colour
 OPS = ('static', 'goal', 'body_poly', 'body_circle', 'eye', 'pupil',
        'block')
-# what the kernels stage a block by: 32 x 32 pixel tiles (PERF.md)
+# The output pixels a block of K2/K3 (LO_TILE) and of K4 (HI_TILE) renders,
+# as (rows, cols): the fastest tilings measured (PERF.md).
 LO_TILE = (32, 32)
+HI_TILE = (32, 32)
 
 _PROGRAMS = {}
 
@@ -170,8 +171,10 @@ def display_program(max_blocks: int, max_goals: int, robot_first: bool,
 
 def kernel_display(state: EnvState, max_blocks: int, max_goals: int,
                    robot_first: bool, static_shapes=None):
-    """The batched display list and static per-slot kinds / line widths,
-    as the contiguous tensors the kernel reads."""
+    """The batched display list of the plain ``build_display_list``, with
+    the static per-slot kinds and line widths: what each kernel builds in
+    its blocks, for the tests and for counting a render's work.  No
+    kernel reads it."""
     d = render.build_display_list(state, max_blocks, max_goals, robot_first,
                                   static_shapes=static_shapes)
     meta = render.static_prim_meta(max_blocks, max_goals, robot_first,
@@ -188,10 +191,11 @@ def kernel_display(state: EnvState, max_blocks: int, max_goals: int,
 
 
 def prim_screen_bboxes(disp, state: EnvState, view: str, res: int):
-    """The plain version of K5's cull (``prim_screen_bbox``,
-    csrc/render_lo.cuh): each prim's screen box, (B, P, 4) as (u_min,
-    u_max, w_min, w_max) in pixel-centre units (pixel (row, col) at u =
-    col + 0.5, w = row + 0.5), outside which its alpha is exactly 0, and
+    """The plain version of the kernels' cull (``prim_screen_bbox``,
+    csrc/render_lo.cuh) on the camera grid at `res` (4x the output's for
+    K4): each prim's screen box, (B, P, 4) as (u_min, u_max, w_min, w_max)
+    in pixel-centre units (pixel (row, col) at u = col + 0.5, w = row +
+    0.5), outside which its lo alpha and hi coverage are exactly 0, and
     (B, P) whether it could be bounded.  `disp` is :func:`kernel_display`'s
     list."""
     ego, scale, half, npx, npy, lw_scale = (
@@ -244,70 +248,32 @@ def prim_screen_bboxes(disp, state: EnvState, view: str, res: int):
             is_circ | bounded)
 
 
-def _check(disp, state: EnvState, out: torch.Tensor, res: int):
-    B = state.batch
-    P = disp['nv'].shape[1]
-    if P > MAX_PRIMS:
-        raise ValueError(f'{P} display prims; the kernel takes {MAX_PRIMS}')
-    if B > MAX_BATCH:
-        raise ValueError(f'batch {B}; the kernel takes {MAX_BATCH}')
-    want = [('verts', torch.float32, (B, P, render.NV, 2)),
-            ('nv', torch.int32, (B, P)), ('radius', torch.float32, (B, P)),
-            ('color', torch.float32, (B, P, 3)),
-            ('active', torch.bool, (B, P)), ('kind', torch.int32, (P,)),
-            ('lw', torch.float32, (P,))]
-    items = [(k, disp[k], dt, shp) for k, dt, shp in want]
-    nb = state.n_bodies
-    items += [('pos', state.pos, torch.float32, (B, nb, 2)),
-              ('angle', state.angle, torch.float32, (B, nb)),
-              ('out', out, torch.uint8, (B, res, res, 3))]
-    for name, x, dt, shp in items:
-        if x.device != state.device or x.device.type != 'cuda':
-            raise ValueError(f'{name} is on {x.device}; the kernel takes '
-                             f'CUDA tensors on {state.device}')
-        if x.dtype != dt:
-            raise TypeError(f'{name} has dtype {x.dtype}, kernel takes {dt}')
-        if tuple(x.shape) != shp:
-            raise ValueError(f'{name} has shape {tuple(x.shape)}, kernel '
-                             f'takes {shp}')
-        if not x.is_contiguous():
-            raise ValueError(f'{name} is not contiguous')
-
-
-# Each kernel's camera grid, as a multiple of the output resolution.
-_GRID = {'render_hi_frame': 4, 'render_hi_into_slot': 4}
-
-
-def _launch(entry: str, disp, state: EnvState, out: torch.Tensor,
-            view: str, res: int, *extra):
-    _check(disp, state, out, res)
-    ptrs = [disp[k].data_ptr() for k in
-            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
-    ptrs += [state.pos.data_ptr(), state.angle.data_ptr(), out.data_ptr()]
-    ints = [state.batch, disp['nv'].shape[1], res, state.n_bodies]
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    rc = getattr(_build.library(), entry)(
-        *ptrs, *ints, *camera_args(view, _GRID.get(entry, 1) * res), *extra,
-        stream)
-    _build.check(rc, entry)
-
-
-# The EnvState fields the lo kernels read, with their dtypes.
+# The EnvState fields the kernels read, with their dtypes.
 _SCENE_FIELDS = (('pos', torch.float32), ('angle', torch.float32),
                  ('block_shape', torch.int32), ('block_colour', torch.int32),
                  ('block_active', torch.bool), ('goal_xyhw', torch.float32),
                  ('goal_colour', torch.int32), ('goal_active', torch.bool))
 
 
+# Each entry point's camera grid, as a multiple of the output resolution,
+# and its tiles where the caller names none.
+_ENTRIES = {'render_lo_into_slot': (1, LO_TILE),
+            'render_lo_frame': (1, LO_TILE), 'render_lo_tiles2d': (1, None),
+            'render_hi_into_slot': (4, HI_TILE),
+            'render_hi_frame': (4, HI_TILE)}
+
+
 def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
-                  view: str, res: int, tile=LO_TILE):
-    """K2 or K3 (`entry`) on the state itself: the kernel builds each
-    env's display list from `prog` (:func:`display_program`) and the
-    state's tensors, in tiles of `tile` = (rows, cols) pixels."""
+                  view: str, res: int, tile=None):
+    """Kernel entry point `entry` on the state itself: the kernel builds
+    each env's display list from `prog` (:func:`display_program`) and the
+    state's tensors, in tiles of `tile` = (rows, cols) output pixels (the
+    entry's own where None), and writes `out` (B, res, res, 3) uint8."""
+    grid, own_tile = _ENTRIES[entry]
     B, P = state.batch, prog[0].shape[0]
     if P > MAX_PRIMS:
         raise ValueError(f'{P} display prims; the kernel takes {MAX_PRIMS}')
-    rows, cols = (int(x) for x in tile)
+    rows, cols = (int(x) for x in (tile or own_tile))
     if rows <= 0 or cols <= 0 or B * -(-res // rows) * -(-res // cols) \
             > 2 ** 31 - 1:
         raise ValueError(f'tile {tile} at res {res}, batch {B}')
@@ -330,36 +296,25 @@ def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
             state.goal_xyhw.shape[1]]
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = getattr(_build.library(), entry)(
-        *ptrs, *ints, *camera_args(view, res), rows, cols, stream)
+        *ptrs, *ints, *camera_args(view, grid * res), rows, cols, stream)
     _build.check(rc, entry)
 
 
 def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
-           res: int, views, static_shapes, *extra):
-    """Fresh frames through kernel entry point `entry` (given `extra`
-    arguments), counted on `wrapper`; on a CPU state, the plain render at
-    `fidelity`.  `scene` is (max_blocks, max_goals, robot_first).  K3
-    builds its display list on the card from the state; K4 and K5 take
-    the batched list of :func:`kernel_display`."""
+           res: int, views, static_shapes, tile=None):
+    """Fresh frames through kernel entry point `entry` (over `tile`, or
+    its own tiles), counted on `wrapper`; on a CPU state, the plain render
+    at `fidelity`.  `scene` is (max_blocks, max_goals, robot_first)."""
     if state.device.type == 'cpu':
         return render.render_views(state, *scene, res=res, views=views,
                                    fidelity=fidelity,
                                    static_shapes=static_shapes)
-    if entry == 'render_lo_frame':
-        prog = display_program(*scene, static_shapes, state.device)
-
-        def launch(frame, view):
-            _launch_scene(entry, prog, state, frame, view, res)
-    else:
-        disp = kernel_display(state, *scene, static_shapes)
-
-        def launch(frame, view):
-            _launch(entry, disp, state, frame, view, res, *extra)
+    prog = display_program(*scene, static_shapes, state.device)
     out = {}
     for view in views:
         frame = torch.empty((state.batch, res, res, 3), dtype=torch.uint8,
                             device=state.device)
-        launch(frame, view)
+        _launch_scene(entry, prog, state, frame, view, res, tile)
         wrapper.launches += 1
         out[view] = frame
     return out
@@ -368,30 +323,19 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 rings: dict, t: int, scene, spec, res: int, static_shapes):
     """Step-`t` frames into their ring slots through `entry`, counted on
-    `wrapper`; on a CPU state, the plain render copied in.  K2 builds its
-    display list on the card from the state; K4 takes
-    :func:`kernel_display`'s."""
+    `wrapper`; on a CPU state, the plain render copied in."""
     if state.device.type == 'cpu':
         return preproc.push_frames_cf(spec, rings, render.render_views(
             state, *scene, res=res, views=spec.views, fidelity=fidelity,
             static_shapes=static_shapes), t)
-    if entry == 'render_lo_into_slot':
-        prog = display_program(*scene, static_shapes, state.device)
-
-        def launch(slot, view):
-            _launch_scene(entry, prog, state, slot, view, res)
-    else:
-        disp = kernel_display(state, *scene, static_shapes)
-
-        def launch(slot, view):
-            _launch(entry, disp, state, slot, view, res)
+    prog = display_program(*scene, static_shapes, state.device)
     for view in spec.views:
         ring = rings[view]
         depth = spec.depth(view)
         if ring.dim() != 5 or ring.shape[0] != depth:
             raise ValueError(f'{view} ring has shape {tuple(ring.shape)}, '
                              f'want ({depth}, B, {res}, {res}, 3)')
-        launch(ring[t % depth], view)
+        _launch_scene(entry, prog, state, ring[t % depth], view, res)
         wrapper.launches += 1
     return rings
 
@@ -422,16 +366,17 @@ def render_lo_tiles2d(state: EnvState, max_blocks: int, max_goals: int,
                       views=('allo', 'ego'), static_shapes=None):
     """K5: fresh lo frames {view: (B, res, res, 3) uint8} composited over
     (row_tile, col_tile) pixel tiles, each tile over the prims whose screen
-    box meets it (:func:`prim_screen_bboxes`).  Equal to
-    :func:`render_views_lo`'s frames; on a CPU state it is the plain lo
-    render.  Raises unless both tile sides divide `res`."""
+    box meets it (:func:`prim_screen_bboxes`), built from the state as K3
+    builds them.  Equal to :func:`render_views_lo`'s frames; on a CPU state
+    it is the plain lo render.  Raises unless both tile sides divide
+    `res`."""
     row_tile, col_tile = (int(x) for x in tiles2d)
     if row_tile <= 0 or col_tile <= 0 or res % row_tile or res % col_tile:
         raise ValueError(f'tiles2d {tuple(tiles2d)} must divide res {res} '
                          f'on both axes')
     return _fresh(render_lo_tiles2d, 'render_lo_tiles2d', 'lo', state,
                   (max_blocks, max_goals, robot_first), res, views,
-                  static_shapes, row_tile, col_tile)
+                  static_shapes, (row_tile, col_tile))
 
 
 render_lo_tiles2d.launches = 0

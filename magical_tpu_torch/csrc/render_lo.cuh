@@ -1,11 +1,11 @@
-// Per-pixel arithmetic of the compositing kernels, lo (render_lo.cu) and
-// hi (render_hi.cu): camera transform, prim SDFs, coverage, painter's-order
-// blends and the uint8 quantise of core/render.py (render_frame, then
-// to_uint8; at hi fidelity also the 4x4 box mean of downsample4); and the
-// lo kernels' display-list build, which makes an env's prims from its
-// state and the scene's display program (build_prim, the arithmetic of
-// core/render.py build_display_list).  Plain C++ in __host__ __device__
-// functions, so that it also builds for the host.
+// Per-pixel arithmetic of the render kernels (render_tiles.cuh): camera
+// transform, prim SDFs, coverage, painter's-order blends and the uint8
+// quantise of core/render.py (render_frame, then to_uint8; at hi fidelity
+// also the 4x4 box mean of downsample4); the display-list build, which
+// makes an env's prims from its state and the scene's display program
+// (build_prim, the arithmetic of core/render.py build_display_list); and
+// the screen boxes by which the kernels cull prims.  Plain C++ in
+// __host__ __device__ functions, so that it also builds for the host.
 
 #pragma once
 
@@ -26,10 +26,11 @@ constexpr int KIND_FILL = 0;
 constexpr int KIND_LINE = 1;
 constexpr int KIND_LINE_STIPPLE = 2;
 
-// The most display prims an env's list may hold: the kernels stage the
-// list in shared memory, sizeof(Prim) = 200 bytes a prim, and stay within
-// the 48 KB a block may take without opting in to more (ClusterColour's
-// Test variants draw 138).
+// The most display prims an env's list may hold: the kernels keep the
+// prims that meet a block's tile in shared memory, sizeof(Prim) = 200
+// bytes a prim (the lo kernels within the 48 KB a block may take without
+// opting in to more; the hi kernel, which keeps a 16-byte box beside each,
+// opts in past 227 prims).  ClusterColour's Test variants draw 138.
 constexpr int MAX_PRIMS = 240;
 
 // One env's display list, staged (in shared memory on the device).
@@ -62,24 +63,6 @@ struct Camera {
   float bg[3];        // background colour
 };
 
-// What a render kernel reads: the batched display list
-// (core/render_kernel.py kernel_display), the robot pose for the ego
-// camera, and where the uint8 frame goes.
-struct RenderArgs {
-  const float* verts;           // (B, P, NV, 2)
-  const int* nv;                // (B, P)
-  const float* radius;          // (B, P)
-  const float* color;           // (B, P, 3)
-  const unsigned char* active;  // (B, P) bool
-  const int* kind;              // (P,)
-  const float* lw;              // (P,)
-  const float* pos;             // (B, NB, 2) robot pose source
-  const float* angle;           // (B, NB)
-  unsigned char* out;           // (B, res, res, 3)
-  int B, P, res, nb;
-  Camera cam;
-};
-
 // core/render.py _poly_edges + the per-face offsets of _prim_sdf.
 __host__ __device__ inline void prim_faces(Prim& p) {
   for (int i = 0; i < NV; ++i) {
@@ -95,69 +78,8 @@ __host__ __device__ inline void prim_faces(Prim& p) {
   }
 }
 
-// RenderArgs from the C entry points' arguments (render_lo.cu,
-// render_hi.cu): `cam_res` is the camera grid's resolution (res, or 4 res
-// at hi fidelity), the floats describe that grid.
-inline RenderArgs make_render_args(
-    const void* verts, const void* nv, const void* radius, const void* color,
-    const void* active, const void* kind, const void* lw, const void* pos,
-    const void* angle, void* out, int B, int P, int res, int nb, int cam_res,
-    int ego, float scale, float half, float npx, float npy, float lw_scale,
-    float two_scale, float bg0, float bg1, float bg2) {
-  RenderArgs a;
-  a.verts = static_cast<const float*>(verts);
-  a.nv = static_cast<const int*>(nv);
-  a.radius = static_cast<const float*>(radius);
-  a.color = static_cast<const float*>(color);
-  a.active = static_cast<const unsigned char*>(active);
-  a.kind = static_cast<const int*>(kind);
-  a.lw = static_cast<const float*>(lw);
-  a.pos = static_cast<const float*>(pos);
-  a.angle = static_cast<const float*>(angle);
-  a.out = static_cast<unsigned char*>(out);
-  a.B = B;
-  a.P = P;
-  a.res = res;
-  a.nb = nb;
-  a.cam = Camera{cam_res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f,
-                 0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
-  return a;
-}
-
-// Prim i of env b, staged with its faces.
-__host__ __device__ inline void load_prim(const RenderArgs& a, int b, int i,
-                                          Prim& p) {
-  const int q = b * a.P + i;
-  for (int v = 0; v < NV; ++v) {
-    p.v[v][0] = a.verts[(q * NV + v) * 2];
-    p.v[v][1] = a.verts[(q * NV + v) * 2 + 1];
-  }
-  p.nv = a.nv[q];
-  p.rad = a.radius[q];
-  for (int c = 0; c < 3; ++c) p.col[c] = a.color[q * 3 + c];
-  p.active = a.active[q] != 0;
-  p.kind = a.kind[i];
-  p.lw = a.lw[i];
-  prim_faces(p);
-}
-
-// The camera of env b: the ego view follows the robot's pose.  `A` is
-// RenderArgs or SceneArgs.
-template <class A>
-__host__ __device__ inline Camera env_camera(const A& a, int b) {
-  Camera cam = a.cam;
-  if (cam.ego) {
-    const float ang = a.angle[b * a.nb];
-    cam.c = MAGICAL_RENDER_COSF(ang);
-    cam.s = MAGICAL_RENDER_SINF(ang);
-    cam.rx = a.pos[b * a.nb * 2];
-    cam.ry = a.pos[b * a.nb * 2 + 1];
-  }
-  return cam;
-}
-
 // ---------------------------------------------------------------------------
-// The display list built from the state (the lo render, K2 and K3)
+// The display list built from the state
 // ---------------------------------------------------------------------------
 
 // The display program (core/render_kernel.py program_arrays): per display
@@ -194,8 +116,9 @@ constexpr int TI_NV = 0;
 constexpr int TI_ACTIVE = TI_NV + 2 * NSHAPE * KSUB;
 constexpr int TI_SIZE = TI_ACTIVE + 2 * NSHAPE * KSUB;
 
-// What K2/K3 read: the EnvState tensors the display list depends on, the
-// display program, and where the uint8 frame goes.
+// What a render kernel reads: the EnvState tensors the display list depends
+// on, the display program, where the uint8 frame goes, and the camera of
+// the grid the kernel samples (the output's, or 4x it at hi fidelity).
 struct SceneArgs {
   const float* pos;                   // (B, NB, 2)
   const float* angle;                 // (B, NB)
@@ -210,8 +133,8 @@ struct SceneArgs {
   const float* tab_f;                 // (TF_SIZE,)
   const int* tab_i;                   // (TI_SIZE,)
   unsigned char* out;                 // (B, res, res, 3)
-  int B, P, res, nb, mb, mg;
-  Camera cam;
+  int B, P, res, nb, mb, mg;          // res: the output's resolution
+  Camera cam;                         // cam.res: the sampled grid's
 };
 
 inline SceneArgs make_scene_args(
@@ -220,8 +143,9 @@ inline SceneArgs make_scene_args(
     const void* goal_xyhw, const void* goal_colour, const void* goal_active,
     const void* prog_i, const void* prog_f, const void* tab_f,
     const void* tab_i, void* out, int B, int P, int res, int nb, int mb,
-    int mg, int ego, float scale, float half, float npx, float npy,
-    float lw_scale, float two_scale, float bg0, float bg1, float bg2) {
+    int mg, int cam_res, int ego, float scale, float half, float npx,
+    float npy, float lw_scale, float two_scale, float bg0, float bg1,
+    float bg2) {
   SceneArgs a;
   a.pos = static_cast<const float*>(pos);
   a.angle = static_cast<const float*>(angle);
@@ -242,9 +166,42 @@ inline SceneArgs make_scene_args(
   a.nb = nb;
   a.mb = mb;
   a.mg = mg;
-  a.cam = Camera{res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f,
+  a.cam = Camera{cam_res, ego, scale, half, npx, npy, 1.0f, 0.0f, 0.0f,
                  0.0f, lw_scale, two_scale, {bg0, bg1, bg2}};
   return a;
+}
+
+// The C entry points' arguments (render_lo.cu, render_hi.cu): the
+// pointers and sizes of SceneArgs, the camera floats of the sampled grid
+// (core/render_kernel.py camera_args) and the output tile in pixels.
+#define SCENE_ARGS                                                          \
+  const void *pos, const void *angle, const void *block_shape,             \
+      const void *block_colour, const void *block_active,                  \
+      const void *goal_xyhw, const void *goal_colour,                      \
+      const void *goal_active, const void *prog_i, const void *prog_f,     \
+      const void *tab_f, const void *tab_i, void *out, int B, int P,       \
+      int res, int nb, int mb, int mg, int ego, float scale, float half,   \
+      float npx, float npy, float lw_scale, float two_scale, float bg0,    \
+      float bg1, float bg2, int row_tile, int col_tile
+// SceneArgs from SCENE_ARGS, the camera's grid at `cam_res`.
+#define SCENE_PASS(cam_res)                                                 \
+  make_scene_args(pos, angle, block_shape, block_colour, block_active,     \
+                  goal_xyhw, goal_colour, goal_active, prog_i, prog_f,     \
+                  tab_f, tab_i, out, B, P, res, nb, mb, mg, cam_res, ego,  \
+                  scale, half, npx, npy, lw_scale, two_scale, bg0, bg1,    \
+                  bg2)
+
+// The camera of env b: the ego view follows the robot's pose.
+__host__ __device__ inline Camera env_camera(const SceneArgs& a, int b) {
+  Camera cam = a.cam;
+  if (cam.ego) {
+    const float ang = a.angle[b * a.nb];
+    cam.c = MAGICAL_RENDER_COSF(ang);
+    cam.s = MAGICAL_RENDER_SINF(ang);
+    cam.rx = a.pos[b * a.nb * 2];
+    cam.ry = a.pos[b * a.nb * 2 + 1];
+  }
+  return cam;
 }
 
 // Local verts `lv` on a body at (px, py) turned by `ang`, into p.v:
@@ -358,17 +315,6 @@ __host__ __device__ inline void build_prim(const SceneArgs& a, int b, int i,
   prim_faces(p);
 }
 
-// The prim of slot i of env b as a kernel stages it: from the batched
-// display list (K4, K5) or built from the state (K2, K3).
-__host__ __device__ inline void stage_prim(const RenderArgs& a, int b, int i,
-                                           Prim& p) {
-  load_prim(a, b, i, p);
-}
-__host__ __device__ inline void stage_prim(const SceneArgs& a, int b, int i,
-                                           Prim& p) {
-  build_prim(a, b, i, p);
-}
-
 // World coordinates of the centre of pixel (row, col).
 __host__ __device__ inline void pixel_world(const Camera& cam, int row,
                                             int col, float* x, float* y) {
@@ -427,44 +373,36 @@ __host__ __device__ inline float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-// Composite every prim over the centre of pixel (row, col) of the camera's
-// grid and quantise each channel to a uint8 level (returned as a float).
-// `hard`: fills get hard (non-antialiased) coverage, the sign of the SDF
-// at the pixel centre, as render_frame(aa=False) gives them; outlines keep
-// their smoothed band either way.
-__host__ __device__ inline void shade_levels(const Prim* prims, int n_prims,
-                                             const Camera& cam, int row,
-                                             int col, bool hard,
-                                             float* level) {
-  float x, y;
-  pixel_world(cam, row, col, &x, &y);
-  float img[3] = {cam.bg[0], cam.bg[1], cam.bg[2]};
-  for (int i = 0; i < n_prims; ++i) {
-    const Prim& p = prims[i];
-    if (!p.active) continue;           // alpha 0: the blend is the identity
-    float d = prim_sdf(p, x, y);
-    float alpha = hard ? (d < 0.0f ? 1.0f : 0.0f)
-                       : clamp01(0.5f - d * cam.scale);
-    if (p.kind != KIND_FILL) {
-      // outlines: smoothed band (GL_LINE_SMOOTH in the reference)
-      float half_lw_w = fmaxf(p.lw * cam.lw_scale, 1.0f) / cam.two_scale;
-      alpha = clamp01((half_lw_w - fabsf(d)) * cam.scale + 0.5f);
-      if (p.kind == KIND_LINE_STIPPLE) {
-        // 8 px on / off along the perimeter (pattern 0x00FF)
-        float s = box_arclen(p, x, y) * cam.scale;
-        bool on = fmodf(floorf(s), 16.0f) < 8.0f;
-        alpha = alpha * (on ? 1.0f : 0.0f);
-      }
+// Coverage of prim p at world point (x, y): its alpha in the blend.
+// `hard`: a fill gets hard (non-antialiased) coverage, the sign of the SDF,
+// as render_frame(aa=False) gives it; outlines keep their smoothed band
+// either way.
+__host__ __device__ inline float prim_alpha(const Prim& p, const Camera& cam,
+                                            float x, float y, bool hard) {
+  float d = prim_sdf(p, x, y);
+  float alpha = hard ? (d < 0.0f ? 1.0f : 0.0f)
+                     : clamp01(0.5f - d * cam.scale);
+  if (p.kind != KIND_FILL) {
+    // outlines: smoothed band (GL_LINE_SMOOTH in the reference)
+    float half_lw_w = fmaxf(p.lw * cam.lw_scale, 1.0f) / cam.two_scale;
+    alpha = clamp01((half_lw_w - fabsf(d)) * cam.scale + 0.5f);
+    if (p.kind == KIND_LINE_STIPPLE) {
+      // 8 px on / off along the perimeter (pattern 0x00FF)
+      float s = box_arclen(p, x, y) * cam.scale;
+      bool on = fmodf(floorf(s), 16.0f) < 8.0f;
+      alpha = alpha * (on ? 1.0f : 0.0f);
     }
-    for (int c = 0; c < 3; ++c)
-      img[c] = img[c] * (1.0f - alpha) + p.col[c] * alpha;
   }
-  for (int c = 0; c < 3; ++c)
-    level[c] = floorf(clamp01(img[c]) * 255.0f + 0.5f);
+  return alpha;
+}
+
+// A channel's uint8 level (as a float): to_uint8.
+__host__ __device__ inline float level_of(float x) {
+  return floorf(clamp01(x) * 255.0f + 0.5f);
 }
 
 // ---------------------------------------------------------------------------
-// Culling by screen box (the 2-D tiled lo render, K5)
+// Culling by screen box
 // ---------------------------------------------------------------------------
 
 // Screen position of world point (x, y) in pixel-centre units: pixel
@@ -534,44 +472,79 @@ __host__ __device__ inline bool prim_screen_bbox(const Prim& p,
   return true;
 }
 
-// Whether prim p can colour a pixel of the tile of rows [r0, r0 + rows)
-// and columns [c0, c0 + cols): active, and its screen box meets the
-// tile's pixel centres on both axes.
-__host__ __device__ inline bool prim_meets_tile(const Prim& p,
-                                                const Camera& cam, int r0,
-                                                int rows, int c0, int cols) {
-  if (!p.active) return false;
-  float bb[4];
-  if (!prim_screen_bbox(p, cam, bb)) return true;
+// A prim's screen box as the kernels keep it: prim_screen_bbox's, or the
+// whole plane where that cannot bound the prim.
+struct Box {
+  float bb[4];                         // u_min, u_max, w_min, w_max
+};
+
+__host__ __device__ inline void prim_box(const Prim& p, const Camera& cam,
+                                         Box& box) {
+  if (!prim_screen_bbox(p, cam, box.bb)) {
+    box.bb[0] = box.bb[2] = -1e30f;
+    box.bb[1] = box.bb[3] = 1e30f;
+  }
+}
+
+// Whether `box` meets the sample centres of the tile of rows [r0, r0 +
+// rows) and columns [c0, c0 + cols) of the camera's grid on both axes.
+__host__ __device__ inline bool box_meets(const Box& box, int r0, int rows,
+                                          int c0, int cols) {
+  const float* bb = box.bb;
   return !(bb[1] < (float)c0 + 0.5f || bb[0] > (float)(c0 + cols) - 0.5f ||
            bb[3] < (float)r0 + 0.5f || bb[2] > (float)(r0 + rows) - 0.5f);
 }
 
-// Lo fidelity: antialiased coverage at the output pixel itself.
+// Lo fidelity: prims `prims` composited in order over the centre of pixel
+// (row, col) with antialiased coverage, each channel quantised.
 __host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
                                             const Camera& cam, int row,
                                             int col, unsigned char* rgb) {
-  float level[3];
-  shade_levels(prims, n_prims, cam, row, col, false, level);
-  for (int c = 0; c < 3; ++c) rgb[c] = (unsigned char)level[c];
+  float x, y;
+  pixel_world(cam, row, col, &x, &y);
+  float img[3] = {cam.bg[0], cam.bg[1], cam.bg[2]};
+  for (int i = 0; i < n_prims; ++i) {
+    const Prim& p = prims[i];
+    if (!p.active) continue;           // alpha 0: the blend is the identity
+    const float alpha = prim_alpha(p, cam, x, y, false);
+    for (int c = 0; c < 3; ++c)
+      img[c] = img[c] * (1.0f - alpha) + p.col[c] * alpha;
+  }
+  for (int c = 0; c < 3; ++c) rgb[c] = (unsigned char)level_of(img[c]);
 }
 
 // Hi fidelity: output pixel (row, col) is the rounded mean of the uint8
 // levels of its 4x4 subpixels, each composited with hard fills on the
 // camera's 4x grid (`cam` describes that grid: res, scale and line scale
-// at 4x).  The levels are integers and their sum is at most 16 * 255, so
-// the float sum is exact in any order, as is the division by 16.
-__host__ __device__ inline void shade_pixel_hi(const Prim* prims, int n_prims,
+// at 4x).  A row of four subpixels goes through the prims together, over
+// those whose box (`boxes`, prim_box on the 4x grid) meets the row: a prim
+// has coverage exactly 0 outside its box, and out * (1 - 0) + c * 0 ==
+// out, so the others change nothing.  The levels are integers and their
+// sum is at most 16 * 255, so the float sum is exact in any order, as is
+// the division by 16.
+__host__ __device__ inline void shade_pixel_hi(const Prim* prims,
+                                               const Box* boxes, int n_prims,
                                                const Camera& cam, int row,
                                                int col, unsigned char* rgb) {
   float sum[3] = {0.0f, 0.0f, 0.0f};
   for (int i = 0; i < 4; ++i) {
+    const int r = 4 * row + i;
+    float x[4], y[4], img[4][3];
     for (int j = 0; j < 4; ++j) {
-      float level[3];
-      shade_levels(prims, n_prims, cam, 4 * row + i, 4 * col + j, true,
-                   level);
-      for (int c = 0; c < 3; ++c) sum[c] += level[c];
+      pixel_world(cam, r, 4 * col + j, &x[j], &y[j]);
+      for (int c = 0; c < 3; ++c) img[j][c] = cam.bg[c];
     }
+    for (int k = 0; k < n_prims; ++k) {
+      const Prim& p = prims[k];
+      if (!p.active || !box_meets(boxes[k], r, 1, 4 * col, 4)) continue;
+      for (int j = 0; j < 4; ++j) {
+        const float alpha = prim_alpha(p, cam, x[j], y[j], true);
+        for (int c = 0; c < 3; ++c)
+          img[j][c] = img[j][c] * (1.0f - alpha) + p.col[c] * alpha;
+      }
+    }
+    for (int j = 0; j < 4; ++j)
+      for (int c = 0; c < 3; ++c) sum[c] += level_of(img[j][c]);
   }
   for (int c = 0; c < 3; ++c)
     rgb[c] = (unsigned char)floorf(sum[c] / 16.0f + 0.5f);

@@ -124,30 +124,17 @@ namespace {
 
 using namespace magical_render;
 
-// The host loop of render_hi.cu: stage each env's display list as the
-// kernel stages it in shared memory, then shade every output pixel
-// (shade_pixel_hi, the camera on the 4x grid).
-int render_hi(const RenderArgs& a) {
-  if (a.P > MAX_PRIMS) return 1;
-  static Prim prims[MAX_PRIMS];
-  for (int b = 0; b < a.B; ++b) {
-    for (int i = 0; i < a.P; ++i) load_prim(a, b, i, prims[i]);
-    const Camera cam = env_camera(a, b);
-    for (int pix = 0; pix < a.res * a.res; ++pix)
-      shade_pixel_hi(prims, a.P, cam, pix / a.res, pix % a.res,
-                     a.out + ((size_t)b * a.res * a.res + pix) * 3);
-  }
-  return 0;
-}
-
-// The loop of render_lo.cu's tiled kernel: per env and tile (ragged at the
-// frame's edge), the prims that meet the tile (slots 0 and 1 always), in
-// display order, staged as the kernel stages them (K2/K3: built from the
-// state; K5: from the batched list), then the tile's pixels over them.
-template <class A>
-int render_lo_tiles(const A& a, int row_tile, int col_tile) {
+// The loop of render_tiles_kernel (render_tiles.cuh): per env and tile of
+// output pixels (ragged at the frame's edge), the prims built from the
+// state whose box meets the tile's samples (slots 0 and 1 always), in
+// display order, with their boxes; then the tile's pixels over them (at
+// hi, the camera on the 4x grid).
+template <bool HI>
+int render_tiles(const SceneArgs& a, int row_tile, int col_tile) {
   if (a.P > MAX_PRIMS || row_tile <= 0 || col_tile <= 0) return 1;
   static Prim kept[MAX_PRIMS];
+  static Box boxes[MAX_PRIMS];
+  const int sub = HI ? 4 : 1;
   for (int b = 0; b < a.B; ++b) {
     const Camera cam = env_camera(a, b);
     for (int r0 = 0; r0 < a.res; r0 += row_tile) {
@@ -157,15 +144,23 @@ int render_lo_tiles(const A& a, int row_tile, int col_tile) {
         int n = 0;
         for (int i = 0; i < a.P; ++i) {
           Prim p;
-          stage_prim(a, b, i, p);
-          if (i < 2 || prim_meets_tile(p, cam, r0, rows, c0, cols))
-            kept[n++] = p;
+          Box box;
+          build_prim(a, b, i, p);
+          prim_box(p, cam, box);
+          if (i < 2 || (p.active && box_meets(box, sub * r0, sub * rows,
+                                              sub * c0, sub * cols))) {
+            kept[n] = p;
+            boxes[n++] = box;
+          }
         }
         for (int q = 0; q < rows * cols; ++q) {
           const int row = r0 + q / cols, col = c0 + q % cols;
-          shade_pixel(kept, n, cam, row, col,
-                      a.out + ((size_t)b * a.res * a.res + row * a.res +
-                               col) * 3);
+          unsigned char* rgb =
+              a.out + ((size_t)b * a.res * a.res + row * a.res + col) * 3;
+          if (HI)
+            shade_pixel_hi(kept, boxes, n, cam, row, col, rgb);
+          else
+            shade_pixel(kept, n, cam, row, col, rgb);
         }
       }
     }
@@ -175,32 +170,6 @@ int render_lo_tiles(const A& a, int row_tile, int col_tile) {
 
 }  // namespace
 
-#define RENDER_ARGS                                                        \
-  const void *verts, const void *nv, const void *radius, const void *color, \
-      const void *active, const void *kind, const void *lw,                \
-      const void *pos, const void *angle, void *out, int B, int P,         \
-      int res, int nb, int ego, float scale, float half, float npx,        \
-      float npy, float lw_scale, float two_scale, float bg0, float bg1,    \
-      float bg2
-#define RENDER_PASS(cam_res)                                               \
-  make_render_args(verts, nv, radius, color, active, kind, lw, pos, angle, \
-                   out, B, P, res, nb, cam_res, ego, scale, half, npx,     \
-                   npy, lw_scale, two_scale, bg0, bg1, bg2)
-#define SCENE_ARGS                                                          \
-  const void *pos, const void *angle, const void *block_shape,             \
-      const void *block_colour, const void *block_active,                  \
-      const void *goal_xyhw, const void *goal_colour,                      \
-      const void *goal_active, const void *prog_i, const void *prog_f,     \
-      const void *tab_f, const void *tab_i, void *out, int B, int P,       \
-      int res, int nb, int mb, int mg, int ego, float scale, float half,   \
-      float npx, float npy, float lw_scale, float two_scale, float bg0,    \
-      float bg1, float bg2
-#define SCENE_PASS                                                          \
-  make_scene_args(pos, angle, block_shape, block_colour, block_active,     \
-                  goal_xyhw, goal_colour, goal_active, prog_i, prog_f,     \
-                  tab_f, tab_i, out, B, P, res, nb, mb, mg, ego, scale,    \
-                  half, npx, npy, lw_scale, two_scale, bg0, bg1, bg2)
-
 extern "C" int render_program_layout(int* out) {
   out[0] = PROG_I;
   out[1] = PROG_F;
@@ -209,19 +178,32 @@ extern "C" int render_program_layout(int* out) {
   return 0;
 }
 
-// K2/K3: a frame built from the state, over (row_tile x col_tile) tiles.
-extern "C" int render_lo_frame(SCENE_ARGS, int row_tile, int col_tile,
-                               void* stream) {
-  return render_lo_tiles(SCENE_PASS, row_tile, col_tile);
+// K2/K3: a lo frame over (row_tile x col_tile) tiles.
+extern "C" int render_lo_frame(SCENE_ARGS, void* stream) {
+  return render_tiles<false>(SCENE_PASS(res), row_tile, col_tile);
+}
+
+// K5: the same over tiles each of which divides res.
+extern "C" int render_lo_tiles2d(SCENE_ARGS, void* stream) {
+  if (row_tile <= 0 || col_tile <= 0 || res % row_tile != 0 ||
+      res % col_tile != 0)
+    return 1;
+  return render_tiles<false>(SCENE_PASS(res), row_tile, col_tile);
+}
+
+// K4: a hi frame over (row_tile x col_tile) output tiles, the camera floats
+// describing the 4x grid.
+extern "C" int render_hi_frame(SCENE_ARGS, void* stream) {
+  return render_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile);
 }
 
 // build_prim's display list of every env, field by field: verts (B, P, NV,
 // 2), nv (B, P), radius (B, P), colour (B, P, 3), active (B, P) as 0 / 1;
-// `out` and the camera are unused.
+// `out`, the camera and the tile are unused.
 extern "C" int render_build_display(SCENE_ARGS, void* verts, void* nv,
                                     void* radius, void* color,
                                     void* active) {
-  const SceneArgs a = SCENE_PASS;
+  const SceneArgs a = SCENE_PASS(res);
   for (int b = 0; b < B; ++b) {
     for (int i = 0; i < P; ++i) {
       Prim p;
@@ -237,29 +219,16 @@ extern "C" int render_build_display(SCENE_ARGS, void* verts, void* nv,
   return 0;
 }
 
-extern "C" int render_hi_frame(RENDER_ARGS, void* stream) {
-  return render_hi(RENDER_PASS(4 * res));
-}
-
-// K5: the batched list over (row_tile x col_tile) tiles, each of which
-// divides res.
-extern "C" int render_lo_tiles2d(RENDER_ARGS, int row_tile, int col_tile,
-                                 void* stream) {
-  if (row_tile <= 0 || col_tile <= 0 || res % row_tile != 0 ||
-      res % col_tile != 0)
-    return 1;
-  return render_lo_tiles(RENDER_PASS(res), row_tile, col_tile);
-}
-
-// Each prim's screen box (B, P, 4) and whether it could be bounded (B, P),
-// as K5 computes them; `out` is unused.
-extern "C" int render_prim_bboxes(RENDER_ARGS, void* bboxes, void* bounded) {
-  const RenderArgs a = RENDER_PASS(res);
+// Each prim's screen box (B, P, 4) on the grid the camera floats describe
+// and whether it could be bounded (B, P), from the prims build_prim makes,
+// as the kernels compute them; `out` and the tile are unused.
+extern "C" int render_prim_bboxes(SCENE_ARGS, void* bboxes, void* bounded) {
+  const SceneArgs a = SCENE_PASS(res);
   for (int b = 0; b < B; ++b) {
     const Camera cam = env_camera(a, b);
     for (int i = 0; i < P; ++i) {
       Prim p;
-      load_prim(a, b, i, p);
+      build_prim(a, b, i, p);
       float* bb = (float*)bboxes + ((size_t)b * P + i) * 4;
       ((int*)bounded)[b * P + i] = prim_screen_bbox(p, cam, bb) ? 1 : 0;
     }

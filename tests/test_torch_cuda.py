@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: ragged batch sizes, the wrappers' input checks, the ring-slot
 write, the hi render at 96² and 384², the control step at every block
-count, the renders (2-D tiled too) at 138 display prims, the slices on
-CUDA against the same slices on the CPU, the lo renders building the
-display list of every family on the card, a lo step that copies nothing
-from the host, and the control step giving the same bits twice.
+count, the renders (2-D tiled too, and the hi render over several tilings)
+at 138 display prims, the slices on CUDA against the same slices on the
+CPU, the lo renders building the display list of every family on the
+card, renders that build no display list on the host, a lo step that
+copies nothing from the host, and the control step giving the same bits
+twice.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -181,16 +183,47 @@ def test_hi_render_kernel_rejects_what_it_does_not_take(cuda):
     wide = make_initial_state(2, 10, 1, cuda)
     assert render_kernel.render_views_hi(wide, 10, 1, False)['ego'].shape \
         == (2, 96, 96, 3)
-    # a display list past what the kernels stage
-    disp = render_kernel.kernel_display(wide, 10, 1, False)
-    n = render_kernel.MAX_PRIMS + 1 - disp['nv'].shape[1]
-    long = {k: torch.cat([v, v[..., :n] if v.dim() == 1 else v[:, :n]],
-                         0 if v.dim() == 1 else 1).contiguous()
-            for k, v in disp.items()}
+    # a display program past what the kernels keep, through the scene path
+    # of K4 and K5
+    prog = render_kernel.display_program(10, 1, False, None, cuda)
+    n = render_kernel.MAX_PRIMS + 1 - prog[0].shape[0]
+    long = (torch.cat([prog[0], prog[0][:n]]).contiguous(),
+            torch.cat([prog[1], prog[1][:n]]).contiguous(), *prog[2:])
     frame = torch.empty((2, 96, 96, 3), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match=str(render_kernel.MAX_PRIMS)):
-        render_kernel._launch('render_hi_frame', long, wide, frame, 'ego',
-                              96)
+    for entry in ('render_hi_frame', 'render_hi_into_slot',
+                  'render_lo_tiles2d'):
+        with pytest.raises(ValueError, match=str(render_kernel.MAX_PRIMS)):
+            render_kernel._launch_scene(entry, long, wide, frame, 'ego', 96,
+                                        (16, 16))
+
+
+def test_hi_and_tiled_renders_build_no_display_list_on_the_host(
+        cuda, monkeypatch):
+    """K4 (fresh frames and ring slots, through a hi BatchedEnv's reset
+    and step) and K5 take the state and the cached display program: on a
+    CUDA state they call the plain build_display_list zero times."""
+    calls = []
+    build = render.build_display_list
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return build(*args, **kwargs)
+    monkeypatch.setattr(render, 'build_display_list', counting)
+    env = BatchedEnv('MoveToRegion-TestAll-LoRes4E-v0', fidelity='hi',
+                     device=cuda)
+    carry, _ = env.reset(0, 8)
+    carry, *_ = env.step(carry, torch.zeros(8, dtype=torch.int32,
+                                            device=cuda))
+    args, ss = env._render_args(), env.static_shapes
+    render_kernel.render_views_hi(carry.state, *args, res=384,
+                                  static_shapes=ss)
+    render_kernel.render_views_lo(carry.state, *args, static_shapes=ss,
+                                  tiles2d=(16, 16))
+    torch.cuda.synchronize()
+    assert not calls
+    # the counter counts: the plain render on the same state calls it
+    render.render_views(carry.state, *args, fidelity='hi', static_shapes=ss)
+    assert calls
 
 
 def test_hi_slice_on_cuda_matches_the_slice_on_the_cpu(cuda):
@@ -257,7 +290,8 @@ def test_render_kernels_at_138_prims(cuda, view):
     env, st, _ = _family_states(cuda, 'ClusterColour', 24, 1)
     args = (env.task.max_blocks, env.task.max_goals, env.robot_first)
     ss = env.static_shapes
-    assert render_kernel.kernel_display(st, *args, ss)['nv'].shape[1] == 138
+    prog = render_kernel.display_program(*args, ss, cuda)
+    assert prog[0].shape[0] == 138
     plain = render.render_views(st, *args, views=(view,), fidelity='lo',
                                 static_shapes=ss)[view]
     k3 = render_kernel.render_views_lo(st, *args, views=(view,),
@@ -279,6 +313,12 @@ def test_render_kernels_at_138_prims(cuda, view):
                                        static_shapes=ss)[view]
     _hi_close(hi, render.render_views(st, *args, views=(view,),
                                       fidelity='hi', static_shapes=ss)[view])
+    # K4's cull is exact: every tiling, ragged ones too, gives its bytes
+    for tile in ((8, 8), (32, 32), (40, 28), (96, 96)):
+        out = torch.empty_like(hi)
+        render_kernel._launch_scene('render_hi_frame', prog, st, out, view,
+                                    96, tile)
+        assert torch.equal(out, hi), tile
     with pytest.raises(ValueError, match='divide'):
         render_kernel.render_views_lo(st, *args, tiles2d=(20, 16))
 

@@ -49,8 +49,8 @@ def host_lib(tmp_path_factory):
     sigs = dict(_build.SIGNATURES, physics_control_step=_build.SIGNATURES[
         'physics_control_step_mb1'])
     P = ctypes.c_void_p
-    sigs['render_build_display'] = sigs['render_lo_frame'][:-3] + [P] * 5
-    sigs['render_prim_bboxes'] = sigs['render_lo_tiles2d'][:-3] + [P] * 2
+    sigs['render_build_display'] = sigs['render_lo_frame'][:-1] + [P] * 5
+    sigs['render_prim_bboxes'] = sigs['render_lo_frame'][:-1] + [P] * 2
     sigs['render_set_trig'] = [P] * 3 + [ctypes.c_int]
     for name in ('physics_table_layout', 'physics_control_step',
                  'render_program_layout', 'render_lo_frame',
@@ -144,26 +144,29 @@ def _torch_trig(host_lib, st):
     return (x, c, s)                 # kept alive while the host reads them
 
 
-def _scene_args(st, prog, out, res, view):
-    """The arguments of K2/K3's entry points (render_lo_frame) but the
-    tile and the stream."""
+def _scene_args(st, prog, out, res, view, grid=1):
+    """The arguments of the render entry points but the tile and the
+    stream, the camera on the grid `grid` times finer than `res`."""
     fields = [getattr(st, name).contiguous()
               for name, _ in render_kernel._SCENE_FIELDS]
     ptrs = [x.data_ptr() for x in fields + [torch.from_numpy(a)
                                             for a in prog] + [out]]
     return fields, ptrs + [st.batch, prog[0].shape[0], res, st.n_bodies,
                            st.max_blocks, st.goal_xyhw.shape[1],
-                           *render_kernel.camera_args(view, res)]
+                           *render_kernel.camera_args(view, grid * res)]
 
 
-def _scene_frame(host_lib, st, scene, ss, view, res=96, tile=(32, 32)):
-    """K2/K3's frame of `st`, built for the host from the display program
-    of `scene` = (max_blocks, max_goals, robot_first)."""
+def _scene_frame(host_lib, st, scene, ss, view, res=96,
+                 tile=render_kernel.LO_TILE, entry='render_lo_frame'):
+    """The frame of `st` through kernel entry point `entry` (K2/K3, K4 or
+    K5), built for the host from the display program of `scene` =
+    (max_blocks, max_goals, robot_first), over `tile`."""
     prog = render_kernel.program_arrays(*scene, ss)
     out = torch.empty((st.batch, res, res, 3), dtype=torch.uint8)
     keep = _torch_trig(host_lib, st)
-    fields, args = _scene_args(st, prog, out, res, view)
-    assert host_lib.render_lo_frame(*args, *tile, None) == 0
+    fields, args = _scene_args(st, prog, out, res, view,
+                               render_kernel._ENTRIES[entry][0])
+    assert getattr(host_lib, entry)(*args, *tile, None) == 0
     assert host_lib.render_trig_misses() == 0
     del keep, fields
     return out
@@ -230,8 +233,9 @@ def test_build_prim_matches_build_display_list(host_lib, task):
         frame = torch.empty((B, 96, 96, 3), dtype=torch.uint8)
         fields, args = _scene_args(st, prog, frame, 96, 'ego')
         assert host_lib.render_build_display(
-            *args, *(out[k].data_ptr() for k in ('verts', 'nv', 'radius',
-                                                 'color', 'active'))) == 0
+            *args, *render_kernel.LO_TILE,
+            *(out[k].data_ptr() for k in ('verts', 'nv', 'radius', 'color',
+                                          'active'))) == 0
         assert host_lib.render_trig_misses() == 0
         del keep, fields
         for k in ('verts', 'nv', 'radius', 'color'):
@@ -252,30 +256,52 @@ def test_scene_render_matches_plain(host_lib, task, variant, view):
     assert torch.equal(_scene_frame(host_lib, st, scene, ss, view), plain)
 
 
+# K4's tilings in the host tests: the kernel's own, a smaller one, a ragged
+# one and one tile a frame.
+HI_TILES = (render_kernel.HI_TILE, (8, 8), (40, 28), (96, 96))
+
+
 @pytest.mark.parametrize('view', ['allo', 'ego'])
 def test_hi_render_kernel_arithmetic_matches_plain(host_lib, view):
-    """K4's subpixel compositing and 4x4 box mean, on every block shape a
-    Test variant draws and an active goal (light fill + stippled border)."""
+    """K4, built for the host: the display list built from the state,
+    culled by tiles of the 4x grid and by subpixel row, then the subpixel
+    compositing and 4x4 box mean, on every block shape a Test variant
+    draws and an active goal (light fill + stippled border), byte-equal to
+    the plain hi render for every tiling of HI_TILES."""
     st, _ = _rollout(4, 4, 5)[-1]
     st.block_shape[:, 0] = torch.tensor(C.RAND_SHAPE_TYPES, dtype=torch.int32)
     st.goal_active[:, 0] = True
     st.goal_xyhw[:, 0] = torch.tensor([-0.3, 0.2, 0.7, 0.6])
     st.goal_colour[:, 0] = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
-    disp = render_kernel.kernel_display(st, 1, 1, True, None)
-    out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
-    ptrs = [disp[k].data_ptr() for k in
-            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
-    ptrs += [st.pos.data_ptr(), st.angle.data_ptr(), out.data_ptr()]
-    rc = host_lib.render_hi_frame(
-        *ptrs, st.batch, disp['nv'].shape[1], 96, st.n_bodies,
-        *render_kernel.camera_args(view, 4 * 96), None)
-    assert rc == 0
     plain = render.render_views(st, 1, 1, True, views=(view,),
                                 fidelity='hi', static_shapes=None)[view]
-    # hard edges: one subpixel rounding the other way would move a value
-    # by up to 16 levels; the same operations in the same order leave none
-    assert torch.equal(out, plain)
+    for tile in HI_TILES:
+        out = _scene_frame(host_lib, st, (1, 1, True), None, view, tile=tile,
+                           entry='render_hi_frame')
+        # hard edges: one subpixel rounding the other way would move a
+        # value by up to 16 levels; the same operations in the same order
+        # leave none
+        assert torch.equal(out, plain), tile
     assert np.unique(plain.numpy()).size > 20
+
+
+@pytest.mark.parametrize('task,B,res,tiles', [
+    ('ClusterColour', 2, 96, (render_kernel.HI_TILE, (40, 28))),
+    ('MoveToRegion', 1, 384, (render_kernel.HI_TILE, (40, 28)))])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_hi_render_kernel_at_138_prims_and_384(host_lib, task, B, res, tiles,
+                                               view):
+    """K4 from the state, built for the host, byte-equal to the plain hi
+    render at the widest scene (ClusterColour-TestAll, 138 prims) and on a
+    raw 384² frame (a 1536² subpixel grid), at the kernel's tile and a
+    ragged one."""
+    st, scene, ss = _family_scene(task, 'TestAll', 3, B=B)
+    plain = render.render_views(st, *scene, res=res, views=(view,),
+                                fidelity='hi', static_shapes=ss)[view]
+    for tile in tiles:
+        out = _scene_frame(host_lib, st, scene, ss, view, res=res, tile=tile,
+                           entry='render_hi_frame')
+        assert torch.equal(out, plain), tile
 
 
 @pytest.mark.parametrize('task', ['FixColour', 'MakeLine', 'FindDupe',
@@ -317,52 +343,34 @@ def test_physics_kernel_arithmetic_at_every_block_count(host_lib, task):
         None, None) != 0
 
 
-def _host_render_args(disp, st, out, res, view):
-    ptrs = [disp[k].data_ptr() for k in
-            ('verts', 'nv', 'radius', 'color', 'active', 'kind', 'lw')]
-    ptrs += [st.pos.data_ptr(), st.angle.data_ptr(), out.data_ptr()]
-    return ptrs + [st.batch, disp['nv'].shape[1], res, st.n_bodies,
-                   *render_kernel.camera_args(view, res)]
-
-
-def _random_scene(task, seed):
-    """A TestAll reset of `task` with every body moved and turned at
-    random: random display lists of every block shape."""
-    t = ALL_TASKS[task]
-    st = t.reset_fn(torch.Generator().manual_seed(seed), 4,
-                    t.flags_for('TestAll'), 'cpu')
-    rng = np.random.default_rng(seed)
-    st.pos += torch.from_numpy(rng.normal(0.0, 0.1, st.pos.shape)
-                               .astype(np.float32))
-    st.angle = torch.from_numpy(rng.uniform(-np.pi, np.pi, st.angle.shape)
-                                .astype(np.float32))
-    return st, (t.max_blocks, t.max_goals, False)
-
-
 @pytest.mark.parametrize('task', ['FixColour', 'ClusterShape'])
 @pytest.mark.parametrize('view', ['allo', 'ego'])
 def test_tiles2d_kernel_arithmetic_matches_plain(host_lib, task, view):
-    """K5's cull and compaction, built for the host: its frames equal the
-    plain lo render at 96² and 384², for tiles of several shapes, and its
-    screen boxes equal the plain ones."""
-    st, scene = _random_scene(task, 2)
+    """K5's build from the state, cull and compaction, built for the host:
+    its frames equal the plain lo render at 96² and 384², for tiles of
+    several shapes, and the screen boxes of the prims it builds equal the
+    plain ones of the plain display list."""
+    st, scene, _ = _family_scene(task, 'TestAll', 2)
     disp = render_kernel.kernel_display(st, *scene)
+    prog = render_kernel.program_arrays(*scene)
     P = disp['nv'].shape[1]
+    assert prog[0].shape[0] == P
     for res, tiles in ((96, ((16, 16), (32, 32), (8, 48))),
                        (384, ((32, 32),))):
         plain = render.render_views(st, *scene, res=res, views=(view,),
                                     fidelity='lo')[view]
-        for rt, ct in tiles:
-            out = torch.empty((st.batch, res, res, 3), dtype=torch.uint8)
-            assert host_lib.render_lo_tiles2d(
-                *_host_render_args(disp, st, out, res, view), rt, ct,
-                None) == 0
-            assert torch.equal(out, plain), (res, rt, ct)
+        for tile in tiles:
+            out = _scene_frame(host_lib, st, scene, None, view, res=res,
+                               tile=tile, entry='render_lo_tiles2d')
+            assert torch.equal(out, plain), (res, tile)
         bb = torch.empty((st.batch, P, 4))
         bounded = torch.empty((st.batch, P), dtype=torch.int32)
+        keep = _torch_trig(host_lib, st)
+        fields, args = _scene_args(st, prog, plain, res, view)
         assert host_lib.render_prim_bboxes(
-            *_host_render_args(disp, st, plain, res, view), bb.data_ptr(),
-            bounded.data_ptr()) == 0
+            *args, *tiles[0], bb.data_ptr(), bounded.data_ptr()) == 0
+        assert host_lib.render_trig_misses() == 0
+        del keep, fields
         pbb, pbounded = render_kernel.prim_screen_bboxes(disp, st, view, res)
         assert torch.equal(bounded.bool(), pbounded)
         assert bool((pbounded | ~disp['active']).all())
@@ -371,8 +379,8 @@ def test_tiles2d_kernel_arithmetic_matches_plain(host_lib, task, view):
         torch.testing.assert_close(bb[pbounded], pbb[pbounded], rtol=0,
                                    atol=1e-3)
     out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
-    assert host_lib.render_lo_tiles2d(
-        *_host_render_args(disp, st, out, 96, view), 7, 16, None) != 0
+    fields, args = _scene_args(st, prog, out, 96, view)
+    assert host_lib.render_lo_tiles2d(*args, 7, 16, None) != 0
 
 
 # After 5 control steps the solver's chaos has grown the last-ulp

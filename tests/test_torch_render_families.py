@@ -141,3 +141,45 @@ def test_prim_screen_boxes_bound_every_coloured_pixel():
             assert not bool((drawn & ~inside).any()), (view, res, p)
             n_checked += int(drawn.any(-1).any(-1).sum())
         assert n_checked > 50
+
+
+@pytest.mark.parametrize('task,view', [('FixColour', 'allo'),
+                                       ('ClusterShape', 'ego')])
+def test_prim_screen_boxes_bound_every_coloured_subpixel(task, view):
+    """K4's cull, plain: on the 4x grid of the hi render, a prim outside
+    its screen box (prim_screen_bboxes at 4 * res) has coverage exactly 0.
+    Each prim is drawn alone with hard fills, outline bands and stipples,
+    as render_views(fidelity='hi') draws it before the 4x4 mean, on
+    TestAll states moved and turned at random (FixColour's three goal
+    regions, ClusterShape's every block shape), and no subpixel it colours
+    lies outside its box."""
+    _, ts = _states(task)
+    rng = np.random.default_rng(1)
+    ts.pos = ts.pos + torch.from_numpy(
+        rng.normal(0.0, 0.05, ts.pos.shape).astype(np.float32))
+    ts.angle = torch.from_numpy(
+        rng.uniform(-np.pi, np.pi, ts.angle.shape).astype(np.float32))
+    disp = TRK.kernel_display(ts, *_scene(task))
+    n = 4 * 96
+    bg = torch.tensor(TR.C.BACKGROUND_COLOUR, dtype=torch.float32)
+    u = torch.arange(n, dtype=torch.float32) + 0.5
+    bb, bounded = TRK.prim_screen_bboxes(disp, ts, view, n)
+    pix, scale = (TR.allo_pixel_coords(n, 'cpu') if view == 'allo'
+                  else TR.ego_pixel_coords(ts, n))
+    n_checked = 0
+    for p in range(disp['nv'].shape[1]):
+        if not bool(disp['active'][:, p].any()):
+            continue
+        one = {k: x[:, p:p + 1] if x.dim() > 1
+               else x[p:p + 1].expand(B, 1) for k, x in disp.items()}
+        img = TR.render_frame(one, pix, scale, n, aa=False)
+        drawn = (img != bg).any(-1) & disp['active'][:, p, None, None]
+        inside = ((u[None, None, :] >= bb[:, p, 0, None, None])
+                  & (u[None, None, :] <= bb[:, p, 1, None, None])
+                  & (u[None, :, None] >= bb[:, p, 2, None, None])
+                  & (u[None, :, None] <= bb[:, p, 3, None, None]))
+        inside |= ~bounded[:, p, None, None]
+        assert not bool((drawn & ~inside).any()), p
+        n_checked += int(drawn.any(-1).any(-1).sum())
+    assert n_checked > 50
+    assert bool((disp['kind'] == TR.KIND_LINE_STIPPLE).any())
