@@ -70,6 +70,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
                rest of the lo step, the observation assembly and the
                score, alone on the main path's and ClusterColour-TestAll's
                last states.
+  9. episode — K1 over the whole MatchRegions and ClusterColour episodes
+               of tests/fixtures/torch_episode_reference.npz (JAX's 64
+               Demo resets, scripts/chaos_floor.py's action script), read
+               with numpy only: the end poses within the `gate` of
+               tests/fixtures/torch_chaos_floor.json (per statistic the
+               looser of the reference's 1-ulp self-divergence and the
+               90% quantile of 64 draws of it on the port's plain path;
+               the reference's own bound is printed beside it), the end
+               scores equal to JAX's, and the first step at which K1
+               leaves the plain version no further than the plain
+               version's own 1-ulp nudge has by then.
+ 10. parity  — the reference-parity resets: 64 scenes of each family's
+               Demo and TestAll sampled by data/parity.py on the native
+               MT19937 library (asserted), built on the card by
+               state_from_spec, 25 K1 steps, K1, K2 and K3 against their
+               plain versions, the worst K1 envs against 64 distinct 1-ulp
+               nudges of themselves, the state envelope and the scores;
+               the host's scenes/s on the native library and on numpy.
+ 11. eval    — eval/protocol.py with a seeded uniform-random policy over
+               BatchedEnv(fidelity='hi').rollout, 1024 rollouts of every
+               test env of MoveToCorner-Demo-LoRes4E-v0 and
+               ClusterColour-Demo-LoRes4E-v0, with pandas blocked (the
+               list of rows): the rows, the CI, _t_ppf against scipy, the
+               same scores again, latexify_results; then a
+               MoveToRegion-Demo-v0 demo recorded through the Gym adapter
+               at hi (raw 384², K4), saved, loaded and preprocessed by the
+               5 preprocessors, each newest frame byte-equal to
+               native.resize_area_batch of its raw frame (that resize
+               timed on the native library and on numpy).
 
 Every kernel's line in the JSON table carries its bound: the larger of
 its operations over 67 TFLOP/s (float32, outside the tensor cores) and
@@ -110,6 +139,25 @@ TILES = ((16, 16), (32, 32))
 # The tilings `[times]` runs K3 and K4 alone over (output pixels a block).
 TILINGS = {'K3': ((16, 16), (32, 32), (48, 48), (96, 96)),
            'K4': ((8, 8), (16, 16), (32, 32), (96, 96))}
+# `episode`: the reference's whole episodes, the reference's 1-ulp
+# self-divergence, the port's (whose `gate` K1 is held to), and the steps
+# over which K1 is bisected against the plain version.
+EPISODE_FIXTURE = 'tests/fixtures/torch_episode_reference.npz'
+REFERENCE_FLOOR = 'tests/fixtures/chaos_floor.json'
+PORT_FLOOR = 'tests/fixtures/torch_chaos_floor.json'
+EPISODE_TASKS = ('MatchRegions', 'ClusterColour')
+EPISODE_BISECT, BISECT_ATOL = 20, 1e-5
+# `parity`: scenes a family and variant, each run under PARITY_REPEAT
+# action sequences (CHECK_BATCH envs, where phys_compare's 1-ulp tail is
+# calibrated), K1 steps, the last steps, held against the plain version,
+# and the 1-ulp nudges of each worst env (nudge_spread).
+PARITY_SCENES, PARITY_REPEAT, PARITY_STEPS, PARITY_CHECK = 64, 8, 25, 1
+PARITY_NUDGES = 64
+# `eval`: the protocol's demo envs (each with all its test envs) and
+# rollouts, and the env of the demo recorded through the Gym adapter.
+EVAL_ENVS = ('MoveToCorner-Demo-LoRes4E-v0', 'ClusterColour-Demo-LoRes4E-v0')
+EVAL_ROLLOUTS = 1024
+DEMO_ENV_NAME = 'MoveToRegion-Demo-v0'
 # The H100 SXM's published peaks at 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -1112,6 +1160,470 @@ def step_rest(env, carry):
           f'{score_ms:.4f} ms')
 
 
+def fixture_state(data, task, which):
+    """The fixture's `which` state of `task` as {field: numpy}."""
+    import dataclasses
+    from magical_tpu_torch.core.state import EnvState
+    return {f.name: data[f'{task}/{which}/{f.name}']
+            for f in dataclasses.fields(EnvState)}
+
+
+def dpos_stats(pos, ref_pos):
+    """scripts/chaos_floor.py:83-95 (and tests/test_torch_episode.py): the
+    per-body position distance of two end states, its median, 90th
+    percentile and share within 0.05."""
+    import numpy as np
+    dpos = np.linalg.norm(np.asarray(pos, np.float32)
+                          - np.asarray(ref_pos, np.float32), axis=-1)
+    return dict(dpos_median=float(np.median(dpos)),
+                dpos_p90=float(np.percentile(dpos, 90)),
+                frac_within_0p05=float((dpos < 0.05).mean()))
+
+
+def episode_floors(task):
+    """(the gate K1 is held to, the reference's own bound) of `task`."""
+    with open(os.path.join(ROOT, PORT_FLOOR)) as f:
+        gate = json.load(f)[task]['gate']
+    with open(os.path.join(ROOT, REFERENCE_FLOOR)) as f:
+        ref = json.load(f)[task]
+    return gate, ref
+
+
+def episode_bisect(data, task, k1_pos):
+    """Env 0 of K1 (`k1_pos`, its positions after each of the first
+    EPISODE_BISECT steps) against the plain version on the card, and the
+    plain version from env 0 with every position 1 ulp up: the first step
+    at which K1 leaves the plain version by more than BISECT_ATOL, and how
+    far the nudge has left it by then, which must be at least as far."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.core import physics
+    from magical_tpu_torch.core.convert import state_from_numpy
+    reset = fixture_state(data, task, 'reset')
+    rows = {k: np.concatenate([v[:1], v[:1]]) for k, v in reset.items()}
+    rows['pos'][1] = np.nextafter(rows['pos'][1], np.float32(np.inf))
+    st = state_from_numpy(rows, DEVICE)
+    for t, p in enumerate(k1_pos, 1):
+        st = physics.control_step(st, torch.full(
+            (2,), int(data['actions'][t - 1]), dtype=torch.int32,
+            device=DEVICE))
+        plain = st.pos[0].cpu().numpy()
+        k_off = float(np.linalg.norm(p - plain, axis=-1).max())
+        if k_off > BISECT_ATOL:
+            nudge = float(np.linalg.norm(st.pos[1].cpu().numpy() - plain,
+                                         axis=-1).max())
+            print(f'[episode] {task} bisect: K1 first leaves the plain version '
+                  f'by more than {BISECT_ATOL:.0e} at step {t} ({k_off:.3e}); '
+                  f'the plain version\'s own 1-ulp nudge has left it by '
+                  f'{nudge:.3e} there')
+            if k_off > nudge:
+                raise AssertionError(f'episode {task}: K1 leaves the plain '
+                                     f'version further than a 1-ulp nudge')
+            return t
+    print(f'[episode] {task} bisect: K1 within {BISECT_ATOL:.0e} of the plain '
+          f'version for {len(k1_pos)} steps')
+    return None
+
+
+def phase_episode():
+    """K1 over the whole episode of EPISODE_FIXTURE's legs, from its JAX
+    resets: the end poses within the gate of episode_floors, and the end
+    scores equal to the reference's env by env; then the bisect of
+    episode_bisect.  Returns K1's launches per task."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.core import physics_kernel
+    from magical_tpu_torch.core.convert import state_from_numpy
+    from magical_tpu_torch.tasks import ALL_TASKS
+    with np.load(os.path.join(ROOT, EPISODE_FIXTURE)) as f:
+        data = {k: f[k] for k in f.files}
+    launches = {}
+    for task in EPISODE_TASKS:
+        n_steps = ALL_TASKS[task].ep_len
+        st = state_from_numpy(fixture_state(data, task, 'reset'), DEVICE)
+        B = st.batch
+        acts = torch.as_tensor(data['actions'][:n_steps], device=DEVICE)
+        trace = {int(s): i for i, s in enumerate(data[f'{task}/trace_steps'])}
+        zero_counts()
+        t0 = time.perf_counter()
+        seen, k1_pos = [], []
+        for t in range(n_steps):
+            st = physics_kernel.control_step(
+                st, acts[t].to(torch.int32).expand(B).contiguous())
+            if t + 1 in trace:
+                seen.append((t + 1, st.pos.cpu().numpy()))
+            if t < EPISODE_BISECT:
+                k1_pos.append(st.pos[0].cpu().numpy())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[task] = read_counts()['K1']
+        if launches[task] != n_steps:
+            raise AssertionError(f'episode {task}: K1 launches '
+                                 f'{launches[task]} != {n_steps}')
+        # where the divergence grows: the largest and the median body
+        # distance at each traced step
+        print(f'[episode] {task}: |pos - reference| max/median at steps '
+              + ', '.join(
+                  f'{s} {d.max():.2e}/{np.median(d):.2e}' for s, d in (
+                      (s, np.linalg.norm(p - data[f'{task}/trace_pos'][
+                          trace[s]], axis=-1)) for s, p in seen)))
+        stats = dpos_stats(st.pos.cpu().numpy(), data[f'{task}/end/pos'])
+        bound, ref = episode_floors(task)
+        score = ALL_TASKS[task].score_fn(st).cpu().numpy()
+        want = data[f'{task}/score']
+        print(f'[episode] {task} B={B}, {n_steps} K1 steps in {dt:.3f} s '
+              f'(host clock): dpos median {stats["dpos_median"]:.6e} <= '
+              f'{bound["dpos_median"]:.6e}, p90 {stats["dpos_p90"]:.6e} <= '
+              f'{bound["dpos_p90"]:.6e}, within 0.05 '
+              f'{stats["frac_within_0p05"]:.6f} >= '
+              f'{bound["frac_within_0p05"]:.6f}; scores equal to the '
+              f'reference in {int((score == want).sum())} of {B} envs '
+              f'(mean {float(score.mean()):.6f}, reference '
+              f'{float(want.mean()):.6f})')
+        print(f'[episode] {task}: the reference\'s own 1-ulp bound '
+              f'(median {ref["dpos_median"]:.6e}, p90 {ref["dpos_p90"]:.6e}, '
+              f'within 0.05 {ref["frac_within_0p05"]:.6f}) '
+              + ('held' if stats['dpos_median'] <= ref['dpos_median']
+                 and stats['dpos_p90'] <= ref['dpos_p90']
+                 and stats['frac_within_0p05'] >= ref['frac_within_0p05']
+                 else 'not held') + f'; the gate: {bound["rule"]}')
+        episode_bisect(data, task, k1_pos)
+        if not (stats['dpos_median'] <= bound['dpos_median']
+                and stats['dpos_p90'] <= bound['dpos_p90']
+                and stats['frac_within_0p05'] >= bound['frac_within_0p05']):
+            raise AssertionError(f'episode {task}: K1 left the chaos floor')
+        if not np.array_equal(score, want):
+            raise AssertionError(f'episode {task}: scores differ from the '
+                                 f'reference')
+    return launches
+
+
+def repeat_env(state, env, n):
+    """Env `env` of a batched state, n times."""
+    import dataclasses
+    import torch
+    idx = torch.full((n,), env, dtype=torch.long, device=state.pos.device)
+    return type(state)(**{f.name: getattr(state, f.name)[idx].contiguous()
+                          for f in dataclasses.fields(state)})
+
+
+def nudge_spread(state, env, action):
+    """One step from env `env` of `state`: K1's largest position error
+    against the plain version, and how far PARITY_NUDGES distinct 1-ulp
+    nudges of that env (each position coordinate up or down by a seeded
+    sign) move the plain version, each the largest coordinate."""
+    import torch
+    from magical_tpu_torch.core import physics, physics_kernel
+    n = PARITY_NUDGES
+    rows = repeat_env(state, env, n + 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    up = torch.rand(rows.pos[1:].shape, generator=gen, device=DEVICE) < 0.5
+    rows.pos[1:] = torch.where(
+        up, torch.nextafter(rows.pos[1:], torch.full_like(rows.pos[1:], 1e30)),
+        torch.nextafter(rows.pos[1:], torch.full_like(rows.pos[1:], -1e30)))
+    act = action[env:env + 1].expand(n + 1).contiguous()
+    k = physics_kernel.control_step(repeat_env(state, env, 1), act[:1])
+    p = physics.control_step(rows, act)
+    err = float((k.pos[0] - p.pos[0]).abs().max())
+    spread = (p.pos[1:] - p.pos[:1]).abs().flatten(1).amax(1)
+    return err, spread
+
+
+def parity_specs(task, flags):
+    """PARITY_SCENES scenes of `task` (seeds 0..) and the host's seconds."""
+    from magical_tpu_torch.data import parity
+    t0 = time.perf_counter()
+    specs = [parity.sample_scene(task, s, flags)
+             for s in range(PARITY_SCENES)]
+    return specs, time.perf_counter() - t0
+
+
+def phase_parity():
+    """The reference-parity resets on the card: for each family and
+    {Demo, TestAll}, PARITY_SCENES scenes of seeds 0.. sampled on the
+    native MT19937 backend (asserted) and again on the numpy fallback (the
+    same scenes, both timed), built with state_from_spec on the card, each
+    PARITY_REPEAT times, PARITY_STEPS seeded random K1 steps (counted; the
+    first PARITY_SCENES envs take the actions a batch of PARITY_SCENES
+    envs draws), K1 against its plain version over the last PARITY_CHECK
+    steps, and the envs where K1 is furthest from it (among the first
+    PARITY_SCENES and among all), where beyond PHYS_FLOOR, against their
+    own 1-ulp nudges (nudge_spread), K2/K3 against the plain render and
+    validate.state_finite on the last state, scores in [0, 1].  Returns
+    the host's scenes/s and K1's launches."""
+    import dataclasses
+    import torch
+    from magical_tpu_torch import native
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.core import physics, physics_kernel, validate
+    from magical_tpu_torch.data import parity
+    from magical_tpu_torch.tasks import ALL_TASKS
+    if not native.available():
+        raise AssertionError(f'native library unavailable: '
+                             f'{native.build_error}')
+    print(f'[parity] MT19937 backend: {native.backend()} '
+          f'({native.library_path().name})')
+
+    def key(spec):
+        return repr(dataclasses.replace(spec, phys=None)), \
+            spec.phys.tobytes()
+
+    n_scenes, host_s, numpy_s, k1 = 0, 0.0, 0.0, 0
+    for task in parity.SAMPLERS:
+        for variant in ('Demo', 'TestAll'):
+            env = BatchedEnv(f'{task}-{variant}-LoRes4E-v0', device=DEVICE)
+            specs, dt = parity_specs(task, env.flags)
+            host_s += dt
+            n_scenes += len(specs)
+            # the same scenes on the numpy fallback
+            load, native._load = native._load, lambda: None
+            try:
+                np_specs, dt = parity_specs(task, env.flags)
+            finally:
+                native._load = load
+            numpy_s += dt
+            if [key(s) for s in np_specs] != [key(s) for s in specs]:
+                raise AssertionError(f'parity {task}-{variant}: the native '
+                                     f'and numpy streams give other scenes')
+            st = parity.state_from_spec(specs * PARITY_REPEAT,
+                                        env.task.max_blocks,
+                                        env.task.max_goals, device=DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+            acts = torch.cat([torch.randint(
+                0, 18, (PARITY_STEPS, n), generator=gen, device=DEVICE,
+                dtype=torch.int32) for n in (PARITY_SCENES,
+                                             st.batch - PARITY_SCENES)], 1)
+            zero_counts()
+            for t in range(PARITY_STEPS):
+                if t == PARITY_STEPS - PARITY_CHECK:
+                    before = st.clone()
+                st = physics_kernel.control_step(st, acts[t])
+            torch.cuda.synchronize()
+            n = read_counts()['K1']
+            if n != PARITY_STEPS:
+                raise AssertionError(f'parity {task}-{variant}: K1 launches '
+                                     f'{n}')
+            k1 += n
+            last = acts[PARITY_STEPS - PARITY_CHECK:]
+            phys_compare(before, last, (PARITY_CHECK,))
+            err = (physics_kernel.control_step(before.clone(), last[0]).pos
+                   - physics.control_step(before.clone(), last[0]).pos
+                   ).abs().flatten(1).amax(1)
+            # the envs furthest from it; one beyond PHYS_FLOOR must lie
+            # within CHAOS_FACTOR x its own 1-ulp nudges (below the floor
+            # that cannot fail)
+            for n_envs in (PARITY_SCENES, st.batch):
+                i = int(err[:n_envs].argmax())
+                line = (f'[parity] {task}-{variant}: K1\'s worst env of the '
+                        f'first {n_envs}, env {i}: 1-step pos err '
+                        f'{float(err[i]):.3e}')
+                if float(err[i]) <= PHYS_FLOOR['pos']:
+                    print(line + f' <= the floor {PHYS_FLOOR["pos"]:.0e}')
+                    continue
+                e, spread = nudge_spread(before, i, last[0])
+                tol = max(PHYS_FLOOR['pos'],
+                          CHAOS_FACTOR * float(spread.max()))
+                q = torch.quantile(spread.double(), torch.tensor(
+                    [0.0, 0.5, 1.0], dtype=torch.float64,
+                    device=spread.device)).tolist()
+                print(line + f' ({e:.3e} alone); its {PARITY_NUDGES} 1-ulp '
+                      f'nudges move the plain version by min/median/max '
+                      f'{q[0]:.3e}/{q[1]:.3e}/{q[2]:.3e}; held <= {tol:.3e}')
+                if e > tol:
+                    raise AssertionError(
+                        f'parity {task}-{variant} env {i}: K1 is further '
+                        f'from the plain version than its 1-ulp nudges')
+            render_compare(env, st)
+            score = env.task.score_fn(st)
+            if not (bool(validate.state_finite(st))
+                    and bool(torch.isfinite(score).all())
+                    and float(score.min()) >= 0 and float(score.max()) <= 1):
+                raise AssertionError(f'parity {task}-{variant}: state or '
+                                     f'scores out of bounds')
+            print(f'[parity] {task}-{variant}: {len(specs)} scenes x '
+                  f'{PARITY_REPEAT} = {st.batch} envs, '
+                  f'{ALL_TASKS[task].max_blocks} block slots, '
+                  f'{PARITY_STEPS} K1 steps; state finite, score mean '
+                  f'{float(score.mean()):.6f} in [0, 1]')
+    rate = n_scenes / host_s
+    print(f'[parity] {n_scenes} scenes sampled on the host in {host_s:.3f} '
+          f's = {rate:.1f} scenes/s on the native library; the same scenes '
+          f'on numpy in {numpy_s:.3f} s = {n_scenes / numpy_s:.1f} '
+          f'scenes/s; K1 launches {k1}')
+    return rate, k1
+
+
+def phase_eval(smi):
+    """The evaluation protocol on the card with pandas blocked (so it
+    returns the list of rows), then one demo recorded through the Gym
+    adapter at hi fidelity, saved, loaded and preprocessed.  Returns K1's
+    and K4's launches."""
+    import tempfile
+    import numpy as np
+    import scipy.stats
+    import torch
+    from magical_tpu_torch import native
+    from magical_tpu_torch.api import registry
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.core.preproc import PREPROCESSORS
+    from magical_tpu_torch.data import trajectories as T
+    from magical_tpu_torch.eval import protocol as E
+
+    class RandomPolicyEval(E.EvaluationProtocol):
+        """A seeded uniform-random policy, EVAL_ROLLOUTS envs at hi
+        fidelity on the card."""
+        run_id = 'uniform-random'
+        scores = {}
+
+        def obtain_scores(self, env_name):
+            env = BatchedEnv(env_name, fidelity='hi', device=DEVICE)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+            carry, obs = env.reset(SEED, self.n_rollouts)
+            *_, scores = env.rollout(
+                carry, obs, lambda o, g: torch.randint(
+                    0, 18, (self.n_rollouts,), generator=g, device=DEVICE,
+                    dtype=torch.int32), gen)
+            self.scores[env_name] = scores[-1].cpu().tolist()
+            return self.scores[env_name]
+
+    launches = {'K1': 0, 'K4': 0}
+    df = EVAL_ROLLOUTS - 1
+    ppf = E._t_ppf(0.975, df)
+    if abs(ppf - scipy.stats.t.ppf(0.975, df)) > 1e-8:
+        raise AssertionError(f'_t_ppf(0.975, {df}) = {ppf!r}, scipy '
+                             f'{scipy.stats.t.ppf(0.975, df)!r}')
+    registry.register_envs()
+    for demo in EVAL_ENVS:
+        ev = RandomPolicyEval(demo_env_name=demo, n_rollouts=EVAL_ROLLOUTS)
+        zero_counts()
+        t0 = time.perf_counter()
+        # the protocol as on a machine without pandas, installed or not
+        pandas = sys.modules.get('pandas')
+        sys.modules['pandas'] = None
+        try:
+            rows = ev.do_eval()
+        finally:
+            if pandas is None:
+                del sys.modules['pandas']
+            else:
+                sys.modules['pandas'] = pandas
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = read_counts()
+        if not isinstance(rows, list):
+            raise AssertionError(f'eval {demo}: without pandas do_eval gave '
+                                 f'a {type(rows).__name__}')
+        want = [demo, *registry.DEMO_ENVS_TO_TEST_ENVS_MAP[demo]]
+        k4 = n['K4 frame'] + n['K4 slot']
+        print(f'[eval] {demo}: {len(rows)} envs x {EVAL_ROLLOUTS} hi '
+              f'rollouts in {dt:.3f} s (host clock) on {smi}; a list of '
+              f'rows (pandas blocked); launches {n}')
+        for r in rows:
+            print(f'[eval]   {r["test_env"]}: mean {r["mean_score"]:.6f} '
+                  f'CI95 [{r["ci95_lower"]:.6f}, {r["ci95_upper"]:.6f}] std '
+                  f'{r["std_score"]:.6f}')
+        if [r['test_env'] for r in rows] != want or not all(
+                r['ci95_lower'] <= r['mean_score'] <= r['ci95_upper']
+                for r in rows):
+            raise AssertionError(f'eval {demo}: rows {rows}')
+        if n['K1'] < len(rows) or k4 < len(rows) or n['K2'] or n['K3']:
+            raise AssertionError(f'eval {demo}: launches {n}')
+        launches['K1'] += n['K1']
+        launches['K4'] += k4
+        first = ev.scores[demo]
+        if ev.obtain_scores(demo) != first:
+            raise AssertionError(f'eval {demo}: a second run with the same '
+                                 f'seed gave other scores')
+        tex = E.latexify_results(rows).strip().splitlines()
+        if not (tex[1].startswith(r'\begin{tabular}')
+                and tex[-2:] == [r'\bottomrule', r'\end{tabular}']
+                and sum(ln.startswith(r'\textbf{uniform-random}')
+                        for ln in tex) == 1):
+            raise AssertionError(f'eval {demo}: latexify_results {tex}')
+        print(f'[eval] {demo}: the same scores on a second run; '
+              f'latexify_results: {len(tex)} lines, well formed')
+
+    # one demo through the Gym adapter at hi (raw 384², K4), saved,
+    # loaded and preprocessed
+    env = registry.make(DEMO_ENV_NAME, fidelity='hi', device=DEVICE)
+    env.seed(SEED)
+    rng = np.random.default_rng(SEED)
+    zero_counts()
+    obs = [env.reset()]
+    acts, rews, infos, done = [], [], [], False
+    while not done:
+        a = int(rng.integers(0, 18))
+        o, r, done, info = env.step(a)
+        acts.append(a)
+        obs.append(o)
+        rews.append(r)
+        infos.append(info)
+    n = read_counts()
+    if n['K1'] != len(acts) or n['K4 frame'] < len(obs):
+        raise AssertionError(f'eval demo: launches {n}')
+    launches['K1'] += n['K1']
+    launches['K4'] += n['K4 frame'] + n['K4 slot']
+    traj = T.MAGICALTrajectory(acts=np.asarray(acts, np.int32), obs=obs,
+                               rews=np.asarray(rews), infos=infos)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f'demo-{DEMO_ENV_NAME}-0.pkl.gz')
+        T.save_demo(path, DEMO_ENV_NAME, traj, infos[-1]['eval_score'])
+        (demo,) = T.load_demos([path])
+    loaded = demo['trajectory']
+    raw = {v: np.stack([o[v] for o in loaded.obs]) for v in ('allo', 'ego')}
+    t0 = time.perf_counter()
+    newest = {v: native.resize_area_batch(raw[v], 96) for v in raw}
+    native_s = time.perf_counter() - t0
+    # the same resize on the numpy fallback
+    load, native._load = native._load, lambda: None
+    try:
+        t0 = time.perf_counter()
+        np_newest = {v: native.resize_area_batch(raw[v], 96) for v in raw}
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native._load = load
+    if not all(np.array_equal(np_newest[v], newest[v]) for v in raw):
+        raise AssertionError('eval demo: the native and numpy resizes differ')
+    n_raw = sum(len(x) for x in raw.values())
+    print(f'[eval] INTER_AREA 384² -> 96² of the demo\'s {n_raw} raw frames: '
+          f'{n_raw / native_s:.1f} frames/s on the native library, '
+          f'{n_raw / numpy_s:.1f} on numpy, byte-equal')
+    n_frames, t0 = 0, time.perf_counter()
+    for name, spec in PREPROCESSORS.items():
+        (out,) = T.preprocess_demos_with_wrapper(
+            [loaded], demo['env_name'], preproc_name=name)
+        n_frames += len(loaded.obs) * len(spec.views)
+        if spec.stacked_dict:
+            views = out.obs
+        else:
+            o = np.moveaxis(out.obs, 1, -1) if spec.channels_first \
+                else out.obs
+            views, c = {}, 0
+            for v in spec.views:
+                views[v] = o[..., c:c + 3 * spec.depth(v)]
+                c += 3 * spec.depth(v)
+            if c != o.shape[-1]:
+                raise AssertionError(f'{name}: {o.shape[-1]} channels')
+        for v, s in views.items():
+            if s.shape != (len(loaded.obs), 96, 96, 3 * spec.depth(v)):
+                raise AssertionError(f'{name} {v}: shape {s.shape}')
+            if not np.array_equal(s[..., -3:], newest[v]):
+                raise AssertionError(f'{name} {v}: the newest frame is not '
+                                     f'the resized raw frame')
+            if not np.array_equal(s[0], np.tile(newest[v][0],
+                                                (1, 1, spec.depth(v)))):
+                raise AssertionError(f'{name} {v}: obs 0 is not the reset '
+                                     f'frame repeated')
+    dt = time.perf_counter() - t0
+    print(f'[eval] {DEMO_ENV_NAME} demo through the Gym adapter at hi: '
+          f'{len(acts)} steps, raw 384² frames, score {demo["score"]}; '
+          f'saved, loaded and preprocessed by the 5 preprocessors '
+          f'({n_frames / dt:.1f} frames/s on the host): shapes right, obs 0 '
+          f'the reset frame repeated, every newest frame byte-equal to '
+          f'native.resize_area_batch of the raw frame; launches {n}')
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'magical_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -1157,6 +1669,9 @@ def main():
     times = timed('times', phase_times, cases)
     step_rest(env, carry)
     step_rest(lo_env, lo_carry)
+    timed('episode', phase_episode)
+    timed('parity', phase_parity)
+    timed('eval', phase_eval, smi)
     launches['K4'] = hi_k4
     errs['K1'] = max(errs['K1'], kerr['K1'][1])
     for k in ('K2', 'K3'):
