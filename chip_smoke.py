@@ -99,6 +99,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
                5 preprocessors, each newest frame byte-equal to
                native.resize_area_batch of its raw frame (that resize
                timed on the native library and on numpy).
+ 12. train   — the learner at full width on MoveToRegion (MagicalCNN and
+               the Discriminator at their own widths, 96² x 12
+               observations, bfloat16), K1, K2 and K3 under a network
+               that acts on their frames, the launch counts zeroed before
+               each part and printed after: the JAX-trained GAIL policy
+               (gail_policy.msgpack, read by models/convert.py) over 1024
+               greedy, 1024 stochastic and 1024 random rollouts of
+               MoveToRegion-Demo-LoRes4E-v0 and -TestJitter-LoRes4E-v0
+               beside GAIL_RESULT.json (the greedy mean at least 0.95 and
+               its CI above random's; the stochastic mean's 95% Welch
+               interval against JAX's holding 0), and its logits on 256
+               of those observations against the same weights on the CPU
+               (float32 and bfloat16); BC from 24 scripted-expert
+               episodes, 300 AdamW steps of 128, then a greedy
+               evaluation of 1024 envs (at least 0.8); and 3 GAIL
+               iterations at 256 envs with the GAIL protocol's settings
+               (both networks must move and stay finite), with the rates
+               of collection, PPO and the discriminator and the card's
+               busy share over the last iteration.
 
 Every kernel's line in the JSON table carries its bound: the larger of
 its operations over 67 TFLOP/s (float32, outside the tensor cores) and
@@ -158,6 +177,31 @@ PARITY_NUDGES = 64
 EVAL_ENVS = ('MoveToCorner-Demo-LoRes4E-v0', 'ClusterColour-Demo-LoRes4E-v0')
 EVAL_ROLLOUTS = 1024
 DEMO_ENV_NAME = 'MoveToRegion-Demo-v0'
+# `train`: the learner at full width (the networks' own widths, 96² x 12
+# observations, bfloat16) on MoveToRegion: the JAX-trained GAIL policy
+# (its result file beside it), BC from the scripted expert, GAIL
+# iterations with the GAIL protocol's settings (GAIL_RESULT.json).
+TRAIN_ENVS = ('MoveToRegion-Demo-LoRes4E-v0',
+              'MoveToRegion-TestJitter-LoRes4E-v0')
+JAX_POLICY = 'gail_policy.msgpack'
+JAX_RESULT = 'GAIL_RESULT.json'
+POLICY_ROLLOUTS = 1024
+LOGIT_OBS = 256
+BC_DEMOS, BC_STEPS, BC_BATCH, BC_LR = 24, 300, 128, 1e-3
+GAIL_ENVS, GAIL_ITERS = 256, 3
+GAIL_KW = dict(entropy_coef=0.02, disc_lr=5e-5, disc_freeze_acc=0.98,
+               disc_obs_only=True)
+GAIL_PPO_EPOCHS, GAIL_MINIBATCHES, GAIL_DISC_BATCH = 4, 4, 2048
+# Held: the JAX policy's greedy mean (JAX reads 1.0 on both envs) and BC's
+# greedy Demo score (tests/test_training.py's bar); the network's logits
+# on the card against the same weights on the CPU, relative to the
+# largest logit: float32 (TF32 off) rounds apart in its sums only,
+# bfloat16 by one bfloat16 ulp carried through the layers (the CPU tests'
+# tolerance against flax).
+POLICY_MIN_GREEDY = 0.95
+BC_MIN_SCORE = 0.8
+NET_F32_RTOL = 1e-4
+NET_BF16_RTOL = 3e-2
 # The H100 SXM's published peaks at 700 W (NVIDIA's data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -922,20 +966,18 @@ def drive(name, batch, n_steps=None, warm=MULTI_WARM, fidelity='lo'):
                 ms=ms)
 
 
-def device_busy(env, carry, n_steps=3):
-    """The card's busy share over n_steps more steps of `env` from
-    `carry`, from a torch.profiler trace (kernel and copy time on the
-    device over the host's wall time), and the host-to-device copies per
-    step; (None, None) where the trace shows no device time."""
+def busy_share(fn):
+    """fn() under torch.profiler: (its result, the card's busy share, the
+    host-to-device copies); the share is kernel and copy time on the
+    device over the host's wall time, None where the trace shows no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    act = torch.zeros(carry.state.batch, dtype=torch.int32, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            carry, *_ = env.step(carry, act)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, h2d = 0.0, 0
@@ -946,9 +988,26 @@ def device_busy(env, carry, n_steps=3):
             busy_us += dev_us
         if 'HtoD' in e.key:
             h2d += e.count
-    if busy_us <= 0:
+    return out, (busy_us / 1e6 / wall if busy_us > 0 else None), h2d
+
+
+def device_busy(env, carry, n_steps=3):
+    """The card's busy share over n_steps more steps of `env` from
+    `carry` (busy_share), and the host-to-device copies per step; (None,
+    None) where the trace shows no device time."""
+    import torch
+    act = torch.zeros(carry.state.batch, dtype=torch.int32, device=DEVICE)
+
+    def steps():
+        c = carry
+        for _ in range(n_steps):
+            c, *_ = env.step(c, act)
+        return c
+
+    carry, busy, h2d = busy_share(steps)
+    if busy is None:
         return carry, None, None
-    return carry, busy_us / 1e6 / wall, h2d / n_steps
+    return carry, busy, h2d / n_steps
 
 
 def report_busy(where, name, env, carry):
@@ -1624,6 +1683,237 @@ def phase_eval(smi):
     return launches
 
 
+def welch_interval(mean_a, se_a, n_a, mean_b, se_b, n_b):
+    """The 95% Welch interval of mean_a - mean_b from each mean's standard
+    error and sample count."""
+    from magical_tpu_torch.eval.protocol import _t_ppf
+    se = (se_a ** 2 + se_b ** 2) ** 0.5
+    df = se ** 4 / (se_a ** 4 / (n_a - 1) + se_b ** 4 / (n_b - 1))
+    half = _t_ppf(0.975, df) * se
+    d = mean_a - mean_b
+    return d - half, d + half
+
+
+def train_policy_on_the_card(smi):
+    """The JAX-trained GAIL policy, read from its flax msgpack, on the
+    card: greedy, stochastic and random rollouts of each TRAIN_ENVS env
+    beside GAIL_RESULT.json's; its logits against the CPU's."""
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.eval.protocol import _t_ppf, tconfint_mean
+    from magical_tpu_torch.models.convert import (params_from_flax,
+                                                  read_flax_msgpack)
+    from magical_tpu_torch.models.nets import MagicalCNN
+    from magical_tpu_torch.tools.train_gail_mtr import eval_random
+    from magical_tpu_torch.train.bc import policy_of
+    sd = params_from_flax(read_flax_msgpack(os.path.join(ROOT, JAX_POLICY)))
+    with open(os.path.join(ROOT, JAX_RESULT)) as f:
+        ref = json.load(f)
+    n_ref = ref['random_baseline']['n']
+    net = MagicalCNN(with_value_head=True)
+    net.load_state_dict(sd)
+    net.to(DEVICE)
+    launches, kept = {}, {}
+    for name in TRAIN_ENVS:
+        variant = name.split('-')[1]
+        env = BatchedEnv(name, device=DEVICE)
+        zero_counts()
+        t0 = time.perf_counter()
+        rows = {}
+        for kind, seed in (('greedy', SEED + 10), ('stoch', SEED + 11)):
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            carry, obs = env.reset(seed, POLICY_ROLLOUTS)
+            _, last, *_, scores = env.rollout(
+                carry, obs, policy_of(net, kind == 'greedy'), gen)
+            rows[kind] = scores[-1].cpu().numpy()
+        # the last observations of the stochastic rollouts
+        kept[name] = last[:LOGIT_OBS // len(TRAIN_ENVS)]
+        rows['random'] = eval_random(env, POLICY_ROLLOUTS, SEED + 12)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[name] = read_counts()
+        print(f'[train] JAX policy on {name}: 3 x {POLICY_ROLLOUTS} '
+              f'rollouts in {dt:.3f} s (host clock) on {smi}; launches '
+              f'{launches[name]}')
+        ci = {}
+        for kind, sc in rows.items():
+            ci[kind] = tconfint_mean(sc)
+            r = ref['final_eval'].get(f'{variant}_{kind}')
+            print(f'[train]   {kind}: mean {sc.mean():.6f} CI95 '
+                  f'[{ci[kind][0]:.6f}, {ci[kind][1]:.6f}]; JAX '
+                  + (f'{r["mean"]:.6f} CI95 [{r["ci"][0]:.6f}, '
+                     f'{r["ci"][1]:.6f}] (n={n_ref})' if r else 'n/a'))
+        if rows['greedy'].mean() < POLICY_MIN_GREEDY:
+            raise AssertionError(f'{name}: the JAX policy scores '
+                                 f'{rows["greedy"].mean()} greedy')
+        if not ci['greedy'][0] > ci['random'][1]:
+            raise AssertionError(f'{name}: greedy CI {ci["greedy"]} not '
+                                 f'above random {ci["random"]}')
+        js = ref['final_eval'][f'{variant}_stoch']
+        se_j = (js['ci'][1] - js['ci'][0]) / 2 / _t_ppf(0.975, n_ref - 1)
+        sc = rows['stoch']
+        lo, hi = welch_interval(sc.mean(), sc.std(ddof=1) / len(sc) ** 0.5,
+                                len(sc), js['mean'], se_j, n_ref)
+        print(f'[train]   stochastic, port - JAX: 95% Welch interval '
+              f'[{lo:.6f}, {hi:.6f}]')
+        if not lo <= 0.0 <= hi:
+            raise AssertionError(f'{name}: the stochastic mean differs from '
+                                 f'JAX\'s: Welch interval [{lo}, {hi}]')
+
+    # the network on the card against the same weights on the CPU
+    obs = torch.cat(list(kept.values()))
+    for dtype, rtol in ((torch.float32, NET_F32_RTOL),
+                        (torch.bfloat16, NET_BF16_RTOL)):
+        card_net, cpu_net = (MagicalCNN(with_value_head=True, dtype=dtype)
+                             for _ in range(2))
+        card_net.load_state_dict(sd)
+        cpu_net.load_state_dict(sd)
+        with torch.no_grad():
+            got = card_net.to(DEVICE)(obs)[0].float().cpu()
+            want = cpu_net(obs.cpu())[0].float()
+        err = float((got - want).abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f'[train] logits of the JAX policy on {len(obs)} observations '
+              f'in {dtype}, card vs CPU: max |dlogit| {err:.3e} (largest '
+              f'|logit| {float(want.abs().max()):.3f}), argmax agreement '
+              f'{agree:.4f}')
+        if err > rtol * float(want.abs().max()):
+            raise AssertionError(f'{dtype} logits on the card vs the CPU: '
+                                 f'{err}')
+    return launches
+
+
+def train_bc_on_the_card(smi):
+    """BC from BC_DEMOS scripted-expert episodes of MoveToRegion-Demo:
+    BC_STEPS AdamW steps, then a greedy evaluation of POLICY_ROLLOUTS
+    envs.  Returns the expert data and the launch counts."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.tools.train_gail_mtr import (collect_expert,
+                                                        eval_policy)
+    from magical_tpu_torch.train.bc import BCTrainer
+    env = BatchedEnv(TRAIN_ENVS[0], device=DEVICE)
+    zero_counts()
+    ds_obs, ds_act, expert = collect_expert(env, BC_DEMOS)
+    n_expert = read_counts()
+    if expert.mean() < 0.9:
+        raise AssertionError(f'the scripted expert scores {expert.mean()}')
+    trainer = BCTrainer(tuple(ds_obs.shape[1:]), lr=BC_LR, seed=1,
+                        device=DEVICE)
+    rng = np.random.default_rng(0)
+    idx = torch.as_tensor(np.stack([
+        rng.choice(len(ds_act), size=BC_BATCH, replace=False)
+        for _ in range(BC_STEPS)]), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(BC_STEPS):
+        m = trainer.train_step(ds_obs[idx[i]], ds_act[idx[i]])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'[train] BC: {BC_DEMOS} expert episodes (score '
+          f'{expert.mean():.3f}; launches {n_expert}), {BC_STEPS} AdamW '
+          f'steps of {BC_BATCH} at lr {BC_LR} in {dt:.3f} s = '
+          f'{BC_STEPS / dt:.1f} steps/s, {BC_STEPS * BC_BATCH / dt:.1f} '
+          f'samples/s on {smi}; last loss {float(m["loss"]):.4f} acc '
+          f'{float(m["acc"]):.3f}')
+    zero_counts()
+    scores, dist = eval_policy(env, trainer.net, POLICY_ROLLOUTS, SEED + 13)
+    n_eval = read_counts()
+    print(f'[train] BC greedy on {TRAIN_ENVS[0]}: mean {scores.mean():.6f} '
+          f'over {POLICY_ROLLOUTS} envs, final distance {dist:.3f}; '
+          f'launches {n_eval}')
+    if scores.mean() < BC_MIN_SCORE:
+        raise AssertionError(f'BC scores {scores.mean()} < {BC_MIN_SCORE}')
+    return ds_obs, ds_act, {'expert': n_expert, 'eval': n_eval}
+
+
+def train_gail_on_the_card(smi, ds_obs, ds_act):
+    """GAIL_ITERS iterations of the GAIL script's loop on the card at
+    GAIL_ENVS envs (GAIL_KW): both networks must move and stay finite; the
+    card's busy share over the last iteration."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.train.gail import GAILTrainer
+    env = BatchedEnv(TRAIN_ENVS[0], device=DEVICE)
+    tr = GAILTrainer(env, tuple(ds_obs.shape[1:]),
+                     rollout_len=env.max_episode_steps, seed=SEED, **GAIL_KW)
+    before = [p.detach().clone() for p in (*tr.policy.parameters(),
+                                           *tr.disc.parameters())]
+    rng = np.random.default_rng(SEED)
+    reset_gen = torch.Generator().manual_seed(SEED)
+    act_gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n_pol = tr.rollout_len * GAIL_ENVS
+    mb = n_pol // GAIL_MINIBATCHES
+    n_disc = GAIL_DISC_BATCH + min(GAIL_DISC_BATCH, len(ds_act))
+
+    def iteration(times):
+        def clock():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+        t0 = clock()
+        carry, obs = env.reset(reset_gen, GAIL_ENVS)
+        carry, obs, traj = tr.collect(carry, obs, act_gen)
+        t1 = clock()
+        for _ in range(GAIL_PPO_EPOCHS):
+            perm = rng.permutation(n_pol)
+            for m in range(GAIL_MINIBATCHES):
+                pm = tr.ppo_update(traj, perm[m * mb:(m + 1) * mb])
+        t2 = clock()
+        ip = rng.choice(n_pol, size=GAIL_DISC_BATCH, replace=False)
+        ie = rng.choice(len(ds_act), size=min(GAIL_DISC_BATCH, len(ds_act)),
+                        replace=False)
+        dm = tr.disc_update(traj['obs'], traj['act'], ip, ds_obs, ds_act, ie)
+        t3 = clock()
+        times.append((t1 - t0, t2 - t1, t3 - t2))
+        return pm, dm, traj
+
+    zero_counts()
+    times = []
+    for _ in range(GAIL_ITERS - 1):
+        iteration(times)
+    (pm, dm, traj), busy, _ = busy_share(lambda: iteration(times))
+    n = read_counts()
+    after = [p.detach() for p in (*tr.policy.parameters(),
+                                  *tr.disc.parameters())]
+    n_pol_params = len(list(tr.policy.parameters()))
+    moved = [not torch.equal(a, b) for a, b in zip(before, after)]
+    finite = all(bool(torch.isfinite(a).all()) for a in after)
+    c, p, d = (min(t[k] for t in times) for k in range(3))
+    print(f'[train] GAIL: {GAIL_ITERS} iterations at {GAIL_ENVS} envs x '
+          f'{tr.rollout_len} steps on {smi}: collection {c:.3f} s = '
+          f'{n_pol / c:.1f} env-steps/s; PPO {GAIL_PPO_EPOCHS} x '
+          f'{GAIL_MINIBATCHES} minibatches {p:.3f} s = '
+          f'{GAIL_PPO_EPOCHS * n_pol / p:.1f} samples/s; discriminator '
+          f'{d:.3f} s = {n_disc / d:.1f} samples/s (fastest iteration of '
+          f'each); card busy '
+          + ('not measured' if busy is None else f'{busy:.1%}')
+          + f' of the last iteration; launches {n}')
+    print(f'[train] GAIL last: pg {float(pm["pg"]):+.4f} vloss '
+          f'{float(pm["vloss"]):.4f} entropy {float(pm["entropy"]):.4f} '
+          f'disc_loss {float(dm["disc_loss"]):.4f} disc_acc '
+          f'{float(dm["disc_acc"]):.4f} reward mean '
+          f'{float(traj["reward"].mean()):+.4f}; obs {tuple(traj["obs"].shape)}')
+    if not (any(moved[:n_pol_params]) and any(moved[n_pol_params:])
+            and finite):
+        raise AssertionError(f'GAIL: policy moved {any(moved[:n_pol_params])}'
+                             f', discriminator moved '
+                             f'{any(moved[n_pol_params:])}, finite {finite}')
+    if n['K1'] != GAIL_ITERS * tr.rollout_len or n['K2'] != n['K1']:
+        raise AssertionError(f'GAIL launches {n}')
+    return n
+
+
+def phase_train(smi):
+    """The learner on the card (module docstring, phase 12); returns K1's,
+    K2's and K3's launches by part."""
+    launches = {'policy': train_policy_on_the_card(smi)}
+    ds_obs, ds_act, launches['bc'] = train_bc_on_the_card(smi)
+    launches['gail'] = train_gail_on_the_card(smi, ds_obs, ds_act)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, 'magical_tpu_torch')):
         print('chip_smoke.py: run it from a checkout of the repository '
@@ -1672,6 +1962,7 @@ def main():
     timed('episode', phase_episode)
     timed('parity', phase_parity)
     timed('eval', phase_eval, smi)
+    timed('train', phase_train, smi)
     launches['K4'] = hi_k4
     errs['K1'] = max(errs['K1'], kerr['K1'][1])
     for k in ('K2', 'K3'):

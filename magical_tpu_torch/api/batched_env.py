@@ -13,6 +13,8 @@ fidelity (lo or hi, ``core/render_kernel.py``), which writes the new frame
 into slot ``t mod depth`` of each view's frame ring, then assembles the
 observation.  Raw IDs (no preprocessor suffix, and the DebugReward IDs)
 observe a ``{allo, ego}`` dict of fresh 384² frames instead, with no ring.
+With ``render_enabled=False`` a reset or a step runs no render kernel and
+returns ``{}`` as the observation (physics and the score only).
 The entry points run on the card unless asked for the CPU
 (``device='cpu'``), where the same calls run the kernels' plain PyTorch
 versions; without a card and without ``device='cpu'`` they raise.  `done`
@@ -73,7 +75,12 @@ class BatchedEnv:
     device: the CUDA card by default, the CPU with ``device='cpu'``."""
 
     def __init__(self, env_name: str, fidelity: str = 'lo',
+                 render_enabled: bool = True,
                  device: Union[str, torch.device] = 'cuda'):
+        # constructor arguments for pickling (EzPickle semantics, as in the
+        # JAX package)
+        self._ctor = dict(env_name=env_name, fidelity=fidelity,
+                          render_enabled=render_enabled, device=device)
         name = EnvName(env_name)
         self.env_name = env_name
         self.device = resolve_device(device)
@@ -91,6 +98,8 @@ class BatchedEnv:
             None if self.debug_reward else name.preproc)
         self.flags = self.task.flags_for(name.variant)
         self.fidelity = fidelity
+        # False: physics and the score only, with `{}` as the observation
+        self.render_enabled = render_enabled
         self.max_episode_steps = self.task.ep_len
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
@@ -132,6 +141,8 @@ class BatchedEnv:
         seeds = torch.randint(0, 2 ** 31 - 1, (batch, 2), generator=gen,
                               device=gen.device)
         state = state.replace(rng=seeds.to(self.device))
+        if not self.render_enabled:
+            return EnvCarry(state=state, frames={}, t=0), {}
         raw = self._render_fresh(state)
         if self.preproc.raw:
             return EnvCarry(state=state, frames={}, t=0), raw
@@ -159,7 +170,9 @@ class BatchedEnv:
                     f'BatchedEnv lockstep violated: t in [{tmin}, {tmax}], '
                     f'host step {t} — the frame-ring phase would be wrong '
                     f'for the whole batch')
-        if self.preproc.raw:
+        if not self.render_enabled:
+            frames, obs = {}, {}
+        elif self.preproc.raw:
             frames = {}
             obs = self._render_fresh(state)
         else:
@@ -194,6 +207,14 @@ class BatchedEnv:
             scores.append(info['eval_score'])
         return (carry, obs, torch.stack(rews), torch.stack(dones),
                 torch.stack(scores))
+
+    # -- pickling (reference envs are EzPickle-able) ------------------------
+
+    def __getstate__(self):
+        return dict(self._ctor)
+
+    def __setstate__(self, ctor):
+        self.__init__(**ctor)
 
     @property
     def action_space(self):

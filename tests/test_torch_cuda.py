@@ -386,3 +386,151 @@ def test_control_step_kernel_gives_the_same_bits_twice(cuda, family):
     with pytest.raises(ValueError, match='phase_clock'):
         physics_kernel.control_step(st.clone(), act,
                                     phase_clock=clock.int())
+
+
+# ---------------------------------------------------------------------------
+# The learner on the card against the same work on the CPU.  Float32 with
+# TF32 off (the fixture): the convolutions sum in other orders, so outputs
+# agree to NET_F32_RTOL of the largest value; bfloat16 to one bfloat16 ulp
+# carried through the layers (tests/test_torch_nets.py's tolerance against
+# flax).  A first Adam step moves each parameter by lr·g/(|g| + eps), about
+# lr·sign(g): where the gradient is within its rounding of 0 the two
+# devices may take opposite signs, a difference of up to 2·lr (the card's
+# cuDNN sums a weight gradient in another order than the CPU).  So where
+# the CPU's gradient is above GRAD_REL of its tensor's largest (over 20x
+# the float32 logits' relative difference, 4.4e-5 on the JAX policy) the
+# parameters agree to STEP_PARAM_ATOL, 1/15 of the learning rate, and
+# elsewhere to the step's bound, 2·lr.
+# ---------------------------------------------------------------------------
+
+NET_F32_RTOL = 1e-4
+NET_BF16_RTOL = 3e-2
+LEARN_LR = 3e-4
+GRAD_REL = 1e-3
+STEP_PARAM_ATOL = 2e-5
+
+
+def _obs_act(n, seed=0, res=96):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (n, res, res, 12),
+                                          dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 18, n).astype('int32')))
+
+
+def _assert_step_close(card, cpu):
+    """Parameters after one Adam step on each device, the CPU's gradient
+    of that step still in .grad (see above)."""
+    for (k, a), (_, b) in zip(card.named_parameters(),
+                              cpu.named_parameters()):
+        d = (a.detach().cpu() - b.detach()).abs()
+        g = b.grad.abs()
+        sure = g > GRAD_REL * g.max()
+        if bool(sure.any()):
+            assert float(d[sure].max()) <= STEP_PARAM_ATOL, k
+        assert float(d.max()) <= 2 * LEARN_LR + STEP_PARAM_ATOL, k
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_nets_on_the_card_match_the_cpu(cuda, dtype):
+    from magical_tpu_torch.models.nets import Discriminator, MagicalCNN
+    dt = getattr(torch, dtype)
+    rtol = NET_F32_RTOL if dtype == 'float32' else NET_BF16_RTOL
+    obs, act = _obs_act(16)
+    for cls, args in ((MagicalCNN, (obs,)), (Discriminator, (obs, act))):
+        kw = {'with_value_head': True} if cls is MagicalCNN else {}
+        cpu = cls(dtype=dt, generator=torch.Generator().manual_seed(0), **kw)
+        card = cls(dtype=dt, generator=torch.Generator().manual_seed(0),
+                   **kw).to(cuda)
+        with torch.no_grad():
+            want = cpu(*args)
+            got = card(*(a.to(cuda) for a in args))
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.dtype == torch.float32 and g.device.type == 'cuda'
+            assert float((g.cpu() - w).abs().max()) \
+                <= rtol * float(w.abs().max())
+
+
+def test_bc_step_on_the_card_matches_the_cpu(cuda):
+    from magical_tpu_torch.train.bc import BCTrainer
+    obs, act = _obs_act(32, 1)
+    cpu = BCTrainer(obs.shape[1:], lr=LEARN_LR, dtype=torch.float32,
+                    device='cpu')
+    card = BCTrainer(obs.shape[1:], lr=LEARN_LR, dtype=torch.float32,
+                     device=cuda)
+    want = cpu.train_step(obs, act)
+    got = card.train_step(obs.to(cuda), act.to(cuda))
+    assert got['loss'].device.type == 'cuda'
+    assert abs(float(got['loss']) - float(want['loss'])) \
+        <= NET_F32_RTOL * float(want['loss'])
+    _assert_step_close(card.net, cpu.net)
+
+
+def _gail(device):
+    from magical_tpu_torch.train.gail import GAILTrainer
+    return GAILTrainer(None, (96, 96, 12), policy_lr=LEARN_LR,
+                       disc_lr=LEARN_LR, entropy_coef=0.02,
+                       dtype=torch.float32, device=device, disc_freeze_acc=1.0)
+
+
+def _rollout(device, T=4, B=8):
+    import numpy as np
+    rng = np.random.default_rng(2)
+    obs, _ = _obs_act(T * B, 3)
+    tr = {'obs': obs.reshape(T, B, 96, 96, 12),
+          'act': torch.from_numpy(rng.integers(0, 18, (T, B)).astype('int32')),
+          'logp': torch.from_numpy(-rng.uniform(2, 3.5, (T, B))).float(),
+          'value': torch.from_numpy(rng.normal(0, 1, (T, B))).float(),
+          'done': torch.zeros(T, B, dtype=torch.bool),
+          'reward': torch.from_numpy(rng.normal(0, 1, (T, B))).float(),
+          'last_value': torch.from_numpy(rng.normal(0, 1, B)).float()}
+    tr['done'][-1] = True
+    return {k: v.to(device) for k, v in tr.items()}
+
+
+def test_ppo_step_on_the_card_matches_the_cpu(cuda):
+    cpu, card = _gail('cpu'), _gail(cuda)
+    idx = torch.arange(0, 32, 2)
+    want = cpu.ppo_update(_rollout('cpu'), idx)
+    got = card.ppo_update(_rollout(cuda), idx.to(cuda))
+    for k in ('pg', 'vloss', 'entropy'):
+        assert abs(float(got[k]) - float(want[k])) \
+            <= NET_F32_RTOL * max(abs(float(want[k])), 1.0), k
+    _assert_step_close(card.policy, cpu.policy)
+
+
+def test_disc_update_on_the_card_matches_the_cpu(cuda):
+    cpu, card = _gail('cpu'), _gail(cuda)
+    exp_obs, exp_act = _obs_act(12, 4)
+    idx_p, idx_e = torch.arange(0, 32, 3), torch.arange(0, 12, 2)
+    rc = _rollout('cpu')
+    want = cpu.disc_update(rc['obs'], rc['act'], idx_p, exp_obs, exp_act,
+                           idx_e)
+    r = _rollout(cuda)
+    got = card.disc_update(r['obs'], r['act'], idx_p.to(cuda),
+                           exp_obs.to(cuda), exp_act.to(cuda),
+                           idx_e.to(cuda))
+    assert float(got['disc_acc']) == float(want['disc_acc'])
+    assert abs(float(got['disc_loss']) - float(want['disc_loss'])) \
+        <= NET_F32_RTOL * float(want['disc_loss'])
+    _assert_step_close(card.disc, cpu.disc)
+
+
+@pytest.mark.parametrize('render', [True, False])
+def test_benchmark_cli_on_the_card(cuda, render, capsys, tmp_path):
+    """--json --steps 3, with and without --no-render (which launches no
+    render kernel), the latter also writing a torch.profiler trace."""
+    import json
+    from magical_tpu_torch.tools import benchmark
+    n = render_kernel.render_into_slots.launches
+    argv = ['--json', '--steps', '3', '--batch', '256']
+    benchmark.main(argv + ([] if render else ['--no-render', '--trace-dir',
+                                              str(tmp_path)]))
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out['render'] is render and out['steps'] == 3
+    assert out['device'] == torch.cuda.get_device_name(0)
+    assert out['env_steps_per_s'] > 0 and out['compile_s'] >= 0
+    assert (render_kernel.render_into_slots.launches - n == 4) is render
+    if not render:
+        assert (tmp_path / 'trace.json').stat().st_size > 0
