@@ -118,6 +118,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (both networks must move and stay finite), with the rates
                of collection, PPO and the discriminator and the card's
                busy share over the last iteration.
+ 13. dist    — the data-parallel path (parallel/, the trainers' `mesh`)
+               on an NCCL process group of one rank (one card; NCCL
+               takes one rank a card): rollout_episodes of
+               MoveToCorner-Demo-LoRes4E-v0 at 4096 envs over the mesh,
+               counted and timed as `main` is, its gathered scores bit for
+               bit those of BatchedEnv.rollout from the same seed and
+               random-action draws; env_throughput; two full-width BC
+               steps over the mesh bit for bit the steps with no mesh
+               (cudnn.deterministic); a GAIL iteration over the mesh at
+               256 envs x 40 steps beside `train`'s.
+ 14. tools   — `python -m magical_tpu_torch --policy random --record` on
+               MoveToRegion-Demo-v0 in a process of its own; its demo
+               re-recorded at hi (K4, equal actions and score),
+               rendered (ffmpeg or PPM frames); `--serve` in a process of
+               its own on a free loopback port: a 384² /frame.png, /state
+               advancing after POST /keys, the page.
+ 15. sweep   — tools/id_sweep.py over all 366 registered IDs from an
+               empty ledger under build/: one whole episode of random
+               actions at batch 2 each (done only at the end, scores in
+               [0, 1] and 0 before it, finite positions); any failure
+               fails the run.
 
 Every kernel's line in the JSON table carries its bound: the larger of
 its operations over 67 TFLOP/s (float32, outside the tensor cores) and
@@ -192,6 +213,8 @@ GAIL_ENVS, GAIL_ITERS = 256, 3
 GAIL_KW = dict(entropy_coef=0.02, disc_lr=5e-5, disc_freeze_acc=0.98,
                disc_obs_only=True)
 GAIL_PPO_EPOCHS, GAIL_MINIBATCHES, GAIL_DISC_BATCH = 4, 4, 2048
+# `tools`: the CLI, re-recording, rendering and the viewer on a raw ID
+TOOLS_ENV = 'MoveToRegion-Demo-v0'
 # Held: the JAX policy's greedy mean (JAX reads 1.0 on both envs) and BC's
 # greedy Demo score (tests/test_training.py's bar); the network's logits
 # on the card against the same weights on the CPU, relative to the
@@ -1902,7 +1925,7 @@ def train_gail_on_the_card(smi, ds_obs, ds_act):
                              f'{any(moved[n_pol_params:])}, finite {finite}')
     if n['K1'] != GAIL_ITERS * tr.rollout_len or n['K2'] != n['K1']:
         raise AssertionError(f'GAIL launches {n}')
-    return n
+    return n, min(sum(t) for t in times)
 
 
 def phase_train(smi):
@@ -1910,8 +1933,378 @@ def phase_train(smi):
     K2's and K3's launches by part."""
     launches = {'policy': train_policy_on_the_card(smi)}
     ds_obs, ds_act, launches['bc'] = train_bc_on_the_card(smi)
-    launches['gail'] = train_gail_on_the_card(smi, ds_obs, ds_act)
-    return launches
+    launches['gail'], gail_s = train_gail_on_the_card(smi, ds_obs, ds_act)
+    return launches, gail_s
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+class LastStep:
+    """An env whose every step leaves its output in `.last`: the carry and
+    observation that rollout_episodes ends on, which it does not return."""
+
+    def __init__(self, env):
+        self.env, self.last = env, None
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def reset(self, *a, **kw):
+        self.last = self.env.reset(*a, **kw)
+        return self.last
+
+    def step(self, *a, **kw):
+        out = self.env.step(*a, **kw)
+        self.last = out[:2]
+        return out
+
+
+def same_end(a, b):
+    """Whether two (carry, obs) are equal bit for bit: every field of the
+    env state, every frame ring and the observation."""
+    import dataclasses
+    import torch
+    (ca, oa), (cb, ob) = a, b
+    fields = [f.name for f in dataclasses.fields(ca.state)]
+    return (ca.t == cb.t and torch.equal(oa, ob)
+            and all(torch.equal(getattr(ca.state, f), getattr(cb.state, f))
+                    for f in fields)
+            and ca.frames.keys() == cb.frames.keys()
+            and all(torch.equal(ca.frames[k], cb.frames[k])
+                    for k in ca.frames))
+
+
+def dist_rollout(smi, mesh, main_rate):
+    """rollout_episodes over the NCCL mesh at MAIN_BATCH envs of ENV_NAME,
+    its steady steps timed as `main` times its own, against
+    BatchedEnv.rollout from the same seed and random-action draws: the
+    scores, the end state, the frame rings and the last observation."""
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.parallel import mesh as M
+    from magical_tpu_torch.parallel import rollout as R
+    env = BatchedEnv(ENV_NAME, device=DEVICE)
+    B, T, warm = MAIN_BATCH, env.max_episode_steps, 5
+    local, start = M.data_rows(mesh, B)
+    random = R.random_policy(local, B, start)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    calls = []
+
+    def policy(obs, gen):
+        if len(calls) == warm:
+            events[0].record()
+        calls.append(1)
+        return random(obs, gen)
+    recorded = LastStep(env)
+    zero_counts()
+    scores = R.rollout_episodes(recorded, policy, SEED + 20, B, mesh=mesh)
+    events[1].record()
+    torch.cuda.synchronize()
+    n = read_counts()
+    ms = events[0].elapsed_time(events[1])
+    rate = B * (T - warm) / (ms / 1e3)
+    # the same episode through BatchedEnv.rollout, one process
+    carry, obs = env.reset(torch.Generator().manual_seed(SEED + 20), B)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    carry, obs, _, dones, ref = env.rollout(carry, obs, R.random_policy(B),
+                                            gen)
+    same_scores = (scores.shape == ref[-1].shape
+                   and bool(torch.equal(scores, ref[-1])))
+    same_state = same_end(recorded.last, (carry, obs))
+    print(f'[dist] rollout_episodes {ENV_NAME} B={B} over NCCL (world size '
+          f'{torch.distributed.get_world_size()}, mesh '
+          f'{tuple(mesh.shape)}): {T - warm} steady steps in {ms:.3f} ms = '
+          f'{rate:.1f} env-steps/s ([main] {main_rate:.1f}, ratio '
+          f'{rate / main_rate:.4f}) on {smi}; launches {n}; scores mean '
+          f'{float(scores.mean()):.6f}, bit for bit BatchedEnv.rollout\'s: '
+          f'scores {same_scores}, end state, frame rings and last '
+          f'observation {same_state}')
+    if not (same_scores and same_state):
+        raise AssertionError('rollout_episodes differs from '
+                             'BatchedEnv.rollout')
+    if n['K1'] != T or n['K2'] != T or n['K3'] < 1:
+        raise AssertionError(f'[dist] rollout launches {n}')
+    tp = R.env_throughput(env, B, n_steps=30, warmup=3, seed=SEED)
+    print(f'[dist] env_throughput {ENV_NAME} B={B}: {tp:.1f} env-steps/s '
+          f'(30 no-op steps after 3, CUDA events)')
+    return n, rate, tp
+
+
+def dist_bc(smi, mesh):
+    """A full-width BC step over the mesh against the same step with no
+    mesh, under cudnn.deterministic: bit for bit."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.train.bc import BCTrainer
+    rng = np.random.default_rng(SEED + 21)
+    obs = torch.as_tensor(rng.integers(0, 256, (BC_BATCH, 96, 96, 12),
+                                       dtype=np.uint8), device=DEVICE)
+    act = torch.as_tensor(rng.integers(0, 18, BC_BATCH), device=DEVICE)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for m in (None, mesh):
+            tr = BCTrainer((96, 96, 12), lr=BC_LR, seed=1, device=DEVICE,
+                           mesh=m)
+            tr.train_step(obs, act)
+            metrics = tr.train_step(obs, act)
+            out.append((metrics, tr.net.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m0, p0), (m1, p1) = out
+    same = (all(torch.equal(p0[k], p1[k]) for k in p0)
+            and torch.equal(m0['loss'], m1['loss']))
+    worst = max(float((p0[k] - p1[k]).abs().max()) for k in p0)
+    print(f'[dist] BC over the mesh, MagicalCNN 64/128/128/256 bf16, '
+          f'96x96x12, batch {BC_BATCH}, 2 AdamW steps against the same '
+          f'steps with no mesh (cudnn.deterministic): bit for bit {same} '
+          f'(max |dparam| {worst:.3e}); loss {float(m1["loss"]):.6f}')
+    if not same:
+        raise AssertionError('[dist] BC over the mesh differs from the '
+                             'step with no mesh')
+
+
+def dist_gail(smi, mesh, train_gail_s):
+    """GAIL iterations over the mesh at GAIL_ENVS envs x 40 steps, as
+    `train`'s iteration (its minibatches and discriminator batch): two
+    timed, then one over the mesh against the same iteration with no mesh
+    on the same inputs, under cudnn.deterministic: bit for bit."""
+    import numpy as np
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.train.gail import GAILTrainer
+    env = BatchedEnv(TRAIN_ENVS[0], device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    exp_obs = torch.as_tensor(rng.integers(
+        0, 256, (GAIL_DISC_BATCH, 96, 96, 12), dtype=np.uint8), device=DEVICE)
+    exp_act = torch.as_tensor(rng.integers(0, 18, GAIL_DISC_BATCH),
+                              device=DEVICE)
+    n_pol = env.max_episode_steps * GAIL_ENVS
+    mb = n_pol // GAIL_MINIBATCHES
+
+    def trainer(m):
+        return GAILTrainer(env, (96, 96, 12),
+                           rollout_len=env.max_episode_steps, seed=SEED,
+                           mesh=m, **GAIL_KW)
+
+    def iteration(tr, rng):
+        carry, obs = env.reset(SEED, GAIL_ENVS, global_batch=GAIL_ENVS)
+        carry, obs, traj = tr.collect(
+            carry, obs, torch.Generator(device=DEVICE).manual_seed(SEED))
+        for _ in range(GAIL_PPO_EPOCHS):
+            perm = rng.permutation(n_pol)
+            for m in range(GAIL_MINIBATCHES):
+                pm = tr.ppo_update(traj, perm[m * mb:(m + 1) * mb])
+        dm = tr.disc_update(traj['obs'], traj['act'],
+                            rng.choice(n_pol, GAIL_DISC_BATCH, replace=False),
+                            exp_obs, exp_act, np.arange(GAIL_DISC_BATCH))
+        return pm, dm
+
+    tr = trainer(mesh)
+    seconds = []
+    zero_counts()
+    for _ in range(2):          # the first builds cuDNN's plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm, dm = iteration(tr, rng)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    n = read_counts()
+    finite = all(bool(torch.isfinite(p).all()) for p in
+                 (*tr.policy.parameters(), *tr.disc.parameters()))
+    print(f'[dist] GAIL over the mesh: an iteration at {GAIL_ENVS} envs x '
+          f'{tr.rollout_len} steps, PPO {GAIL_PPO_EPOCHS} x '
+          f'{GAIL_MINIBATCHES} minibatches, discriminator {GAIL_DISC_BATCH} '
+          f'+ {GAIL_DISC_BATCH}: {seconds[-1]:.3f} s (first '
+          f'{seconds[0]:.3f} s; [train]\'s fastest {train_gail_s:.3f} s, '
+          f'ratio {seconds[-1] / train_gail_s:.4f}) on {smi}; pg '
+          f'{float(pm["pg"]):+.4f} disc_acc {float(dm["disc_acc"]):.4f}; '
+          f'launches {n}; finite {finite}')
+    if not finite or n['K1'] != 2 * tr.rollout_len:
+        raise AssertionError(f'[dist] GAIL: finite {finite}, launches {n}')
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for m in (None, mesh):
+            tr = trainer(m)
+            metrics = iteration(tr, np.random.default_rng(SEED + 22))
+            out.append((metrics, {**tr.policy.state_dict(), **{
+                f'disc.{k}': v for k, v in tr.disc.state_dict().items()}}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ((pm0, dm0), p0), ((pm1, dm1), p1) = out
+    same = (all(torch.equal(p0[k], p1[k]) for k in p0)
+            and all(torch.equal(a[k], b[k]) for a, b in ((pm0, pm1),
+                                                        (dm0, dm1))
+                    for k in a))
+    worst = max(float((p0[k].float() - p1[k].float()).abs().max())
+                for k in p0)
+    print(f'[dist] GAIL over the mesh against the same iteration with no '
+          f'mesh on the same inputs (cudnn.deterministic): bit for bit '
+          f'{same} (max |dparam| {worst:.3e}); pg {float(pm1["pg"]):+.6f} '
+          f'disc_loss {float(dm1["disc_loss"]):.6f} disc_acc '
+          f'{float(dm1["disc_acc"]):.4f}')
+    if not same:
+        raise AssertionError('[dist] GAIL over the mesh differs from the '
+                             'iteration with no mesh')
+    return n, seconds[-1]
+
+
+def phase_dist(smi, main_rate, train_gail_s):
+    """The data-parallel path on an NCCL group of one rank (this machine
+    has one card, and NCCL takes one rank a card): rollout_episodes at the
+    main path's width, env_throughput, a BC step and a GAIL iteration over
+    the mesh.  Returns the rollout's launches."""
+    import torch
+    import torch.distributed as dist
+    from magical_tpu_torch.parallel import mesh as M
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError(f'[dist] backend {dist.get_backend()}')
+        mesh = M.make_mesh()
+        # NCCL sets up its communicator at the first collective: take it
+        # here, outside the timed rollout
+        t0 = time.perf_counter()
+        one = torch.ones(1, device=DEVICE)
+        dist.all_reduce(one, group=mesh.get_group('data'))
+        torch.cuda.synchronize()
+        print(f'[dist] NCCL group of one rank, mesh {tuple(mesh.shape)} '
+              f"('data', 'model'): first all_reduce (the communicator's "
+              f'set-up) {time.perf_counter() - t0:.3f} s')
+        n, rate, tp = dist_rollout(smi, mesh, main_rate)
+        dist_bc(smi, mesh)
+        n_gail, gail_s = dist_gail(smi, mesh, train_gail_s)
+    finally:
+        dist.destroy_process_group()
+    return {'rollout': n, 'gail': n_gail, 'rate': rate, 'throughput': tp,
+            'gail_s': gail_s}
+
+
+def decode_png_size(png):
+    import struct
+    if png[:8] != b'\x89PNG\r\n\x1a\n' or png[12:16] != b'IHDR':
+        raise AssertionError('not a PNG')
+    return struct.unpack('>II', png[16:24])
+
+
+def http(url, data=None):
+    import urllib.request
+    with urllib.request.urlopen(url, data=data, timeout=30) as r:
+        return r.read()
+
+
+def phase_tools(smi):
+    """The CLI and the tools on the card: `python -m magical_tpu_torch
+    --policy random --record` on TOOLS_ENV in a process of its own, the
+    demo re-recorded at hi (equal actions and score: the Demo reset is
+    deterministic), rendered to video or frames, and the viewer
+    (`--serve`) in a process of its own on a free loopback port."""
+    import shutil
+    from magical_tpu_torch.data.trajectories import load_demos
+    from magical_tpu_torch.tools import render_demos
+    from magical_tpu_torch.tools.re_record_demos import re_record
+    out = os.path.join(ROOT, 'build', 'chip_tools')
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-m', 'magical_tpu_torch',
+                        '--env-name', TOOLS_ENV, '--policy', 'random',
+                        '--episodes', '1', '--record', out, '--seed', '0'],
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    cli_s = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f'[tools] CLI failed:\n{r.stderr[-3000:]}')
+    (demo_path,) = [os.path.join(out, f) for f in os.listdir(out)]
+    (demo,) = load_demos([demo_path])
+    print(f'[tools] python -m magical_tpu_torch --env-name {TOOLS_ENV} '
+          f'--policy random --record: {cli_s:.1f} s (a process of its own, '
+          f'start-up included); {r.stdout.strip().splitlines()[0]}')
+    zero_counts()
+    t0 = time.perf_counter()
+    (rr_path,) = re_record(TOOLS_ENV, [demo_path], os.path.join(out, 'rr'),
+                           fidelity='hi', verbose=False, device=DEVICE)
+    rr_s = time.perf_counter() - t0
+    n = read_counts()
+    (rr,) = load_demos([rr_path])
+    same = (list(rr['trajectory'].acts) == list(demo['trajectory'].acts)
+            and rr['score'] == demo['score'])
+    print(f'[tools] re_record at hi: {rr_s:.2f} s, {len(rr["trajectory"].obs)}'
+          f' observations, score {rr["score"]} against the demo\'s '
+          f'{demo["score"]}, equal actions and score {same}; launches {n}')
+    if not same or n['K4 frame'] < 1:
+        raise AssertionError(f'[tools] re_record: equal {same}, launches {n}')
+    (video,) = render_demos.main([rr_path, '--out-dir',
+                                  os.path.join(out, 'video')])
+    print(f'[tools] render_demos: '
+          + ('ffmpeg, ' + video if video.endswith('.mp4') else
+             f'no ffmpeg, {len(os.listdir(video))} PPM frames in {video}'))
+    port = free_port()
+    log = open(os.path.join(out, 'serve.log'), 'wb')
+    proc = subprocess.Popen([sys.executable, '-m', 'magical_tpu_torch',
+                             '--env-name', TOOLS_ENV, '--serve', str(port)],
+                            env=env, cwd=ROOT, stdout=log, stderr=log)
+    base = f'http://127.0.0.1:{port}'
+    try:
+        t0 = time.perf_counter()
+        size = None
+        while time.perf_counter() - t0 < 120 and size != (384, 384):
+            try:
+                size = decode_png_size(http(base + '/frame.png'))
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError('[tools] --serve exited')
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        state = json.loads(http(base + '/state'))
+        http(base + '/keys', json.dumps(['up']).encode())
+        t1 = time.perf_counter()
+        later = state
+        while time.perf_counter() - t1 < 30 and later['t'] <= state['t']:
+            time.sleep(0.25)
+            later = json.loads(http(base + '/state'))
+        page = http(base + '/')
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        log.close()
+    print(f'[tools] --serve on 127.0.0.1:{port}: first frame after '
+          f'{up_s:.1f} s, /frame.png {size[0]}x{size[1]}, /state t '
+          f'{state["t"]} -> {later["t"]} after POST /keys, recording '
+          f'{later["recording"]}; / {len(page)} bytes')
+    if size != (384, 384) or later['t'] <= state['t'] or b'/keys' not in page:
+        raise AssertionError('[tools] the viewer did not serve')
+
+
+def phase_sweep(smi):
+    """tools/id_sweep.py over every registered ID on the card, from an
+    empty ledger under build/: one whole random episode each at batch 2;
+    any failure fails the run."""
+    from magical_tpu_torch.tools import id_sweep
+    ledger = os.path.join(ROOT, 'build', 'chip_sweep', 'id_sweep.txt')
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    zero_counts()
+    out = id_sweep.main(['--ledger', ledger, '--device', DEVICE])
+    n = read_counts()
+    print(f'[sweep] {out["green"]}/{out["total"]} IDs green in '
+          f'{out["seconds"]:.1f} s ({out["steps"]} steps at batch '
+          f'{id_sweep.BATCH}, {out["steps"] / out["seconds"]:.1f} steps/s) '
+          f'on {smi}; launches {n}')
+    if out['failed'] or out['green'] != out['total'] or out['total'] != 366:
+        raise AssertionError(f'[sweep] failed: {out["failed"]}')
+    if min(n['K1'], n['K2'], n['K3']) < 1:
+        raise AssertionError(f'[sweep] launches {n}')
+    return n
 
 
 def main():
@@ -1962,7 +2355,10 @@ def main():
     timed('episode', phase_episode)
     timed('parity', phase_parity)
     timed('eval', phase_eval, smi)
-    timed('train', phase_train, smi)
+    train_launches, train_gail_s = timed('train', phase_train, smi)
+    dist_out = timed('dist', phase_dist, smi, rate, train_gail_s)
+    timed('tools', phase_tools, smi)
+    sweep_launches = timed('sweep', phase_sweep, smi)
     launches['K4'] = hi_k4
     errs['K1'] = max(errs['K1'], kerr['K1'][1])
     for k in ('K2', 'K3'):
@@ -2007,6 +2403,11 @@ def main():
     print(f'[result] env-steps/s {rate:.1f} (lo main), {hi_rate:.1f} (hi, '
           f'K1 {hi_k1} and K4 {hi_k4} launches); mean over the families '
           f'{multi["mean"][0]:.1f} (n_tasks={multi["mean"][1]}); on {smi}')
+    print(f'[result] [dist] rollout_episodes over NCCL {dist_out["rate"]:.1f} '
+          f'env-steps/s, env_throughput {dist_out["throughput"]:.1f}, a GAIL '
+          f'iteration over the mesh {dist_out["gail_s"]:.3f} s ([train] '
+          f'{train_gail_s:.3f} s); [sweep] launches {sweep_launches}; '
+          f'[train] launches {train_launches}')
     print('[result] phase wall times: '
           + ', '.join(f'{k} {v:.1f} s' for k, v in wall.items()))
     print(smi)

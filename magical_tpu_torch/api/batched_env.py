@@ -42,7 +42,7 @@ from magical_tpu_torch.api import spaces
 from magical_tpu_torch.api.names import EnvName
 from magical_tpu_torch.core import physics_kernel, preproc, render_kernel
 from magical_tpu_torch.core.state import EnvState
-from magical_tpu_torch.tasks import ALL_TASKS
+from magical_tpu_torch.tasks import ALL_TASKS, randomize
 from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
 
 
@@ -131,15 +131,20 @@ class BatchedEnv:
     # -- the API -----------------------------------------------------------
 
     def reset(self, generator_or_seed: Union[torch.Generator, int],
-              batch: int):
+              batch: int, global_batch: Optional[int] = None,
+              start: int = 0):
         """Reset `batch` envs; returns (carry, obs).  Randomness comes
-        from the given CPU generator (or one seeded with the int)."""
+        from the given CPU generator (or one seeded with the int).  With
+        `global_batch`, the envs are rows ``[start, start + batch)`` of a
+        reset of `global_batch` envs from the same generator, bit for bit
+        (a data-parallel rank's share, ``parallel/multihost.py``)."""
         gen = generator_or_seed
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator().manual_seed(int(gen))
+        if global_batch is not None and (global_batch, start) != (batch, 0):
+            gen = randomize.RowSlice(gen, global_batch, start)
         state = self.task.reset_fn(gen, batch, self.flags, self.device)
-        seeds = torch.randint(0, 2 ** 31 - 1, (batch, 2), generator=gen,
-                              device=gen.device)
+        seeds = randomize.randint(gen, 0, 2 ** 31 - 1, (batch, 2))
         state = state.replace(rng=seeds.to(self.device))
         if not self.render_enabled:
             return EnvCarry(state=state, frames={}, t=0), {}

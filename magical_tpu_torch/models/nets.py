@@ -89,6 +89,19 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
 
 
+def dense_colwise(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
+    """:func:`dense` of a layer whose weight and bias are split by output
+    column over a 1-D mesh (DTensors, ``ColwiseParallel``): each rank
+    computes its columns, which are then gathered, so every rank holds
+    the whole (B, out) result as a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = lin.weight.device_mesh
+    xd = DTensor.from_local(x.to(dtype), mesh, [Replicate()],
+                            run_check=False)
+    y = F.linear(xd, lin.weight.to(dtype)) + lin.bias.to(dtype)
+    return y.redistribute(mesh, [Replicate()]).to_local()
+
+
 def to_nchw(obs: torch.Tensor, dtype) -> torch.Tensor:
     """uint8 (B, H, W, C), or (B, C, H, W) where shape[1] <= 16 <
     shape[-1] (the JAX package's test), -> (B, C, H, W) in [0, 1]."""
@@ -154,9 +167,25 @@ class MagicalCNN(_Trunk):
         if with_value_head:
             self.v = nn.Linear(256, 1)
         self.reset_parameters(generator)
+        self.fc_split = False
+
+    def split_fc(self, mesh):
+        """Split ``fc`` by output column over `mesh`'s ``model`` dim
+        (``ColwiseParallel``, the gathered output replicated): the layout
+        of flax's ``(None, 'model')`` annotation on its kernel.  A layout
+        only: the logits are those of the whole layer.  Replaces fc's
+        parameters, so an optimiser is made after it."""
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.parallel import (ColwiseParallel,
+                                                       parallelize_module)
+        parallelize_module(self.fc, mesh['model'],
+                           ColwiseParallel(output_layouts=Replicate()))
+        self.fc_split = True
+        return self
 
     def forward(self, obs):
-        x = F.relu(dense(self.trunk(obs), self.fc, self.dtype))
+        fc = dense_colwise if self.fc_split else dense
+        x = F.relu(fc(self.trunk(obs), self.fc, self.dtype))
         logits = dense(x, self.pi, torch.float32)
         if self.with_value_head:
             return logits, dense(x, self.v, torch.float32)[..., 0]

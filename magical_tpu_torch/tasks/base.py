@@ -118,7 +118,7 @@ FULL_VARIANT_FLAGS = {
 
 class Draws:
     """The random numbers of one batched reset, drawn from a CPU or CUDA
-    `generator` in call order.  Every draw is per env, (B, *shape), and
+    `generator` (or a :class:`randomize.RowSlice` of one) in call order.  Every draw is per env, (B, *shape), and
     named; the names are what :class:`GivenDraws` looks up."""
 
     def __init__(self, generator: Optional[torch.Generator], batch: int,
@@ -129,9 +129,8 @@ class Draws:
 
     def uniform(self, name: str, shape=()):
         """Uniforms in [0, 1), f32."""
-        g = self.generator
-        return torch.rand((self.batch,) + tuple(shape), generator=g,
-                          device=g.device).to(self.device)
+        return R.rand(self.generator, (self.batch,) + tuple(shape)).to(
+            self.device)
 
     def randint(self, name: str, low: int, high, shape=()):
         """Integers in [low, high), i32; `high` is an int or a per-env
@@ -141,10 +140,9 @@ class Draws:
             span = (high - low).to(torch.float32).reshape(
                 (-1,) + (1,) * len(shape))
             return (low + torch.floor(u * span)).to(torch.int32)
-        g = self.generator
-        return torch.randint(low, high, (self.batch,) + tuple(shape),
-                             generator=g, device=g.device).to(
-            self.device, torch.int32)
+        return R.randint(self.generator, low, high,
+                         (self.batch,) + tuple(shape)).to(self.device,
+                                                          torch.int32)
 
     def choice(self, name: str, values, shape=()):
         """rng.choice over a static tuple of integer codes: the draw is the
@@ -221,15 +219,13 @@ def sample_phys(generator: torch.Generator, batch: int, flags: Flags,
     hi = f32(C.PHYS_VAR_HI, device)
     if not flags.dynamics:
         return f32(C.PHYS_VAR_DEFAULTS, device).repeat(batch, 1)
-    u = torch.rand((batch, C.N_PHYS_VARS), generator=generator,
-                   device=generator.device).to(device)
+    u = R.rand(generator, (batch, C.N_PHYS_VARS)).to(device)
     return lo + u * (hi - lo)
 
 
 def choice(generator: torch.Generator, values, batch: int, device):
     """rng.choice over a static tuple of integer codes, per env: (B,)."""
-    idx = torch.randint(0, len(values), (batch,), generator=generator,
-                        device=generator.device).to(device)
+    idx = R.randint(generator, 0, len(values), (batch,)).to(device)
     return torch.as_tensor(np.asarray(values, np.int32), device=device)[idx]
 
 

@@ -18,6 +18,12 @@ The draw and the placement are split: :func:`place_entity` draws the
 uniforms from a ``torch.Generator`` and :func:`place_from_proposals` turns
 given uniforms into poses, so that a test can feed the JAX package's
 uniforms to the port.
+
+Every draw of a reset goes through :func:`rand` or :func:`randint`, which
+take a ``torch.Generator`` or a :class:`RowSlice` of one: the rows
+``[start, start + batch)`` of the draws a reset of the whole global batch
+makes, so that a data-parallel rank's envs are bit for bit those rows of a
+one-process reset.
 """
 
 from __future__ import annotations
@@ -37,6 +43,53 @@ NV = G.NV
 KSUB = G.KSUB
 N_TRIES = 128          # proposals evaluated per entity placement
 _BIG = 1e9
+
+
+# ---------------------------------------------------------------------------
+# Draws, whole or a rank's rows of a global batch
+# ---------------------------------------------------------------------------
+
+class RowSlice:
+    """`generator` drawing for a batch of `global_batch` envs of which the
+    caller keeps rows ``[start, start + B)``: every draw of shape (B, ...)
+    draws (global_batch, ...) and keeps those rows."""
+
+    def __init__(self, generator: torch.Generator, global_batch: int,
+                 start: int):
+        self.generator = generator
+        self.global_batch = int(global_batch)
+        self.start = int(start)
+
+    @property
+    def device(self):
+        return self.generator.device
+
+
+def _draw(fn, generator, shape, device, *args):
+    shape = tuple(shape)
+    if isinstance(generator, RowSlice):
+        if generator.start + shape[0] > generator.global_batch:
+            raise ValueError(
+                f'rows [{generator.start}, {generator.start + shape[0]}) '
+                f'are not rows of a batch of {generator.global_batch}')
+        full = fn(*args, (generator.global_batch,) + shape[1:],
+                  generator=generator.generator, device=generator.device)
+        return full[generator.start:generator.start + shape[0]]
+    return fn(*args, shape, generator=generator,
+              device=device if generator is None else generator.device)
+
+
+def rand(generator, shape, device=None):
+    """Uniforms in [0, 1) of `shape` from `generator` (a generator, a
+    :class:`RowSlice` or None for the global one, then on `device`), on
+    the generator's device."""
+    return _draw(torch.rand, generator, shape, device)
+
+
+def randint(generator, low: int, high: int, shape, device=None):
+    """Integers in [low, high) (int64) of `shape`, drawn as :func:`rand`
+    draws."""
+    return _draw(torch.randint, generator, shape, device, low, high)
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +315,7 @@ def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
 
 
 def _uniform(generator: torch.Generator, shape, device):
-    return torch.rand(shape, generator=generator,
-                      device=generator.device).to(device)
+    return rand(generator, shape).to(device)
 
 
 def place_entity(generator: torch.Generator, ent_geom, cur_pos, cur_angle,

@@ -21,14 +21,18 @@ import torch.nn.functional as F
 from magical_tpu_torch import constants as C
 from magical_tpu_torch.api.batched_env import resolve_device
 from magical_tpu_torch.models.nets import MagicalCNN, obs_channels
+from magical_tpu_torch.parallel import mesh as M
+from magical_tpu_torch.tasks import randomize
 
 
 def sample_actions(logits: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """Categorical draws from `logits` (B, A) by the Gumbel-max trick, as
-    ``jax.random.categorical`` draws: int32 (B,), with no host sync."""
+    ``jax.random.categorical`` draws: int32 (B,), with no host sync.
+    `generator` may be a ``randomize.RowSlice`` (a rank's rows of a global
+    batch's draws)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = randomize.rand(generator, logits.shape, logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
     return (logits.float() + gumbel).argmax(-1).to(torch.int32)
 
@@ -49,29 +53,35 @@ def policy_of(net, greedy=False):
 
 class BCTrainer:
     """BC of a `MagicalCNN` policy (``widths``, ``dtype``) on (obs, acts)
-    batches, on `device`.  The network is initialised as flax does, from
-    `seed`."""
+    batches, on `device`, data-parallel over `mesh` where one is given.
+    The network is initialised as flax does, from `seed`."""
 
     def __init__(self, obs_shape, num_actions: int = C.N_ACTIONS,
                  lr: float = 3e-4, weight_decay: float = 1e-5,
                  widths: Sequence[int] = (64, 128, 128, 256),
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: Union[str, torch.device] = 'cuda'):
+                 device: Union[str, torch.device] = 'cuda', mesh=None):
         self.device = resolve_device(device)
         self.obs_shape = tuple(obs_shape)
+        self.mesh = mesh
         self.net = MagicalCNN(
             num_actions, widths, dtype, in_channels=obs_channels(obs_shape),
             generator=torch.Generator().manual_seed(seed)).to(self.device)
+        split = M.model_split(mesh)
+        if split:
+            self.net.split_fc(mesh)
         self.opt = torch.optim.AdamW(self.net.parameters(), lr=lr,
-                                     weight_decay=weight_decay, eps=1e-8)
+                                     weight_decay=weight_decay, eps=1e-8,
+                                     foreach=False if split else None)
         self.step = 0
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(x, device=self.device).to(dtype)
 
     def train_step(self, obs, acts) -> Dict[str, torch.Tensor]:
-        """One AdamW step on the batch; returns {'loss', 'acc'}, 0-d
-        tensors on the device."""
+        """One AdamW step on the batch (with a mesh: this rank's rows of
+        the global batch); returns {'loss', 'acc'}, 0-d tensors on the
+        device (with a mesh: over the global batch)."""
         obs = self._tensor(obs, torch.uint8)
         acts = self._tensor(acts, torch.int64)
         logits = self.net(obs)
@@ -80,21 +90,26 @@ class BCTrainer:
         acc = (logits.argmax(-1) == acts).float().mean()
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss, acc = loss.detach()[None], acc[None]
+        M.mean_over_data([p.grad for p in self.net.parameters()]
+                         + [loss, acc], self.mesh)
         self.opt.step()
         self.step += 1
-        return {'loss': loss.detach(), 'acc': acc}
+        return {'loss': loss[0], 'acc': acc[0]}
 
     def fit(self, obs: np.ndarray, acts: np.ndarray, batch_size=256,
             epochs=1, rng=None, log_every=50):
         """Epochs of shuffled batches (the permutation drawn from numpy, as
-        the JAX package draws it); returns the last step's metrics."""
+        the JAX package draws it, the same on every rank; with a mesh each
+        rank steps on its rows of each global batch); returns the last
+        step's metrics."""
         rng = rng or np.random.default_rng(0)
         n = len(acts)
         metrics = None
         for _ in range(epochs):
             perm = rng.permutation(n)
             for i in range(0, n - batch_size + 1, batch_size):
-                idx = perm[i:i + batch_size]
+                idx = M.shard_batch(perm[i:i + batch_size], self.mesh)
                 metrics = self.train_step(obs[idx], acts[idx])
                 if self.step % log_every == 0:
                     print(f'bc step {self.step}: '

@@ -6,7 +6,8 @@ at 138 display prims, the slices on CUDA against the same slices on the
 CPU, the lo renders building the display list of every family on the
 card, renders that build no display list on the host, a lo step that
 copies nothing from the host, and the control step giving the same bits
-twice.
+twice; the data-parallel path on an NCCL group of one rank (the gathered
+rollout scores, a BC step over the mesh) and the CLI on the card.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -534,3 +535,86 @@ def test_benchmark_cli_on_the_card(cuda, render, capsys, tmp_path):
     assert (render_kernel.render_into_slots.launches - n == 4) is render
     if not render:
         assert (tmp_path / 'trace.json').stat().st_size > 0
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel path on an NCCL group of one rank, and the CLI
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def nccl_mesh():
+    """A ('data', 'model') mesh over an NCCL group of one rank."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: NCCL runs only there')
+    import socket
+
+    import torch.distributed as dist
+    from magical_tpu_torch.parallel import mesh as M
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == 'nccl'
+        yield M.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_rollout_episodes_over_nccl_is_batched_envs_rollout(cuda, nccl_mesh):
+    from magical_tpu_torch.parallel import rollout as R
+    env = BatchedEnv(NAME, device=cuda)
+    launches = physics_kernel.control_step.launches
+    scores = R.rollout_episodes(env, None, 3, 300, mesh=nccl_mesh)
+    assert physics_kernel.control_step.launches - launches == 80
+    carry, obs = env.reset(torch.Generator().manual_seed(3), 300)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    *_, ref = env.rollout(carry, obs, R.random_policy(300), gen)
+    assert scores.device.type == 'cuda' and scores.shape == (300,)
+    assert torch.equal(scores, ref[-1])
+    assert R.env_throughput(env, 64, n_steps=3, warmup=1) > 0
+
+
+def test_bc_step_over_nccl_is_the_plain_step(cuda, nccl_mesh):
+    """A data-parallel BC step at world size 1 (the gradients all-reduced
+    over NCCL) gives the bits of the step with no mesh."""
+    from magical_tpu_torch.train.bc import BCTrainer
+    obs, act = _obs_act(32, 5)
+    obs, act = obs.to(cuda), act.to(cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for mesh in (None, nccl_mesh):
+            tr = BCTrainer(obs.shape[1:], dtype=torch.float32, device=cuda,
+                           mesh=mesh)
+            m = tr.train_step(obs, act)
+            out.append((m, tr.net.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (m0, p0), (m1, p1) = out
+    assert torch.equal(m0['loss'], m1['loss'])
+    assert torch.equal(m0['acc'], m1['acc'])
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+
+
+def test_cli_records_on_the_card(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    from magical_tpu_torch.data.trajectories import load_demos
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, '-m', 'magical_tpu_torch', '--env-name',
+         'MoveToRegion-Demo-LoRes4E-v0', '--policy', 'random', '--seed', '0',
+         '--record', str(tmp_path)], cwd=root, capture_output=True,
+        env=dict(os.environ, PYTHONPATH=root), timeout=300)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    (name,) = os.listdir(tmp_path)
+    (demo,) = load_demos([str(tmp_path / name)])
+    assert demo['trajectory'].obs.shape == (41, 96, 96, 12)
+    assert len(demo['trajectory'].acts) == 40
+    assert demo['score'] in (0.0, 1.0)
