@@ -70,25 +70,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
                rest of the lo step, the observation assembly and the
                score, alone on the main path's and ClusterColour-TestAll's
                last states.
-  9. episode — K1 over the whole MatchRegions and ClusterColour episodes
-               of tests/fixtures/torch_episode_reference.npz (JAX's 64
-               Demo resets, scripts/chaos_floor.py's action script), read
-               with numpy only: the end poses within the `gate` of
-               tests/fixtures/torch_chaos_floor.json (per statistic the
-               looser of the reference's 1-ulp self-divergence and the
-               90% quantile of 64 draws of it on the port's plain path;
-               the reference's own bound is printed beside it), the end
-               scores equal to JAX's, and the first step at which K1
-               leaves the plain version no further than the plain
-               version's own 1-ulp nudge has by then.
- 10. parity  — the reference-parity resets: 64 scenes of each family's
+  9. episode — K1 over the whole episodes of the three legs of
+               tests/fixtures/torch_episode_reference.npz (JAX's Demo
+               resets, 64 distinct action sequences a leg: MoveToCorner
+               at mb 1, 80 steps; MatchRegions at mb 8, 120;
+               ClusterColour at mb 10, 240), read with numpy only: the
+               end poses (scripts/chaos_floor.py's `dpos` median, 90th
+               percentile and share within 0.05) and the mean |score
+               difference| held with no allowance to the `gate` of
+               tests/fixtures/torch_episode_floor.json, the reference's
+               own 1-ulp self-divergence over the same 64 trajectories
+               (per statistic the 0.9 quantile of its draws, the share's
+               0.1), each printed beside its bound and the draws'
+               quantiles; and, on env 0 and on the env where K1 ends
+               furthest from the reference, the first step at which K1
+               leaves the plain version no further than 16 1-ulp draws
+               of the plain version have by then.
+ 10. determinism — K1 32 times on the same inputs, every run's state bit
+               for bit the first's: `[parity]`'s 64-env MoveToCorner-Demo
+               case and a 4096-env ClusterColour-TestAll state (mb 10).
+ 11. parity  — the reference-parity resets: 64 scenes of each family's
                Demo and TestAll sampled by data/parity.py on the native
                MT19937 library (asserted), built on the card by
                state_from_spec, 25 K1 steps, K1, K2 and K3 against their
                plain versions, the worst K1 envs against 64 distinct 1-ulp
                nudges of themselves, the state envelope and the scores;
                the host's scenes/s on the native library and on numpy.
- 11. eval    — eval/protocol.py with a seeded uniform-random policy over
+ 12. eval    — eval/protocol.py with a seeded uniform-random policy over
                BatchedEnv(fidelity='hi').rollout, 1024 rollouts of every
                test env of MoveToCorner-Demo-LoRes4E-v0 and
                ClusterColour-Demo-LoRes4E-v0, with pandas blocked (the
@@ -99,7 +107,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                5 preprocessors, each newest frame byte-equal to
                native.resize_area_batch of its raw frame (that resize
                timed on the native library and on numpy).
- 12. train   — the learner at full width on MoveToRegion (MagicalCNN and
+ 13. train   — the learner at full width on MoveToRegion (MagicalCNN and
                the Discriminator at their own widths, 96² x 12
                observations, bfloat16), K1, K2 and K3 under a network
                that acts on their frames, the launch counts zeroed before
@@ -118,7 +126,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (both networks must move and stay finite), with the rates
                of collection, PPO and the discriminator and the card's
                busy share over the last iteration.
- 13. dist    — the data-parallel path (parallel/, the trainers' `mesh`)
+ 14. dist    — the data-parallel path (parallel/, the trainers' `mesh`)
                on an NCCL process group of one rank (one card; NCCL
                takes one rank a card): rollout_episodes of
                MoveToCorner-Demo-LoRes4E-v0 at 4096 envs over the mesh,
@@ -128,13 +136,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                steps over the mesh bit for bit the steps with no mesh
                (cudnn.deterministic); a GAIL iteration over the mesh at
                256 envs x 40 steps beside `train`'s.
- 14. tools   — `python -m magical_tpu_torch --policy random --record` on
+ 15. tools   — `python -m magical_tpu_torch --policy random --record` on
                MoveToRegion-Demo-v0 in a process of its own; its demo
                re-recorded at hi (K4, equal actions and score),
                rendered (ffmpeg or PPM frames); `--serve` in a process of
                its own on a free loopback port: a 384² /frame.png, /state
                advancing after POST /keys, the page.
- 15. sweep   — tools/id_sweep.py over all 366 registered IDs from an
+ 16. sweep   — tools/id_sweep.py over all 366 registered IDs from an
                empty ledger under build/: one whole episode of random
                actions at batch 2 each (done only at the end, scores in
                [0, 1] and 0 before it, finite positions); any failure
@@ -179,14 +187,18 @@ TILES = ((16, 16), (32, 32))
 # The tilings `[times]` runs K3 and K4 alone over (output pixels a block).
 TILINGS = {'K3': ((16, 16), (32, 32), (48, 48), (96, 96)),
            'K4': ((8, 8), (16, 16), (32, 32), (96, 96))}
-# `episode`: the reference's whole episodes, the reference's 1-ulp
-# self-divergence, the port's (whose `gate` K1 is held to), and the steps
-# over which K1 is bisected against the plain version.
+# `episode`: the reference's whole episodes (three legs of 64 distinct
+# trajectories), the reference's own 1-ulp floor over them (whose `gate` K1
+# is held to) and its statistics, the steps over which K1 is bisected
+# against the plain version, and the 1-ulp nudges the bisect compares it
+# with; `determinism`: K1's runs on the same inputs.
 EPISODE_FIXTURE = 'tests/fixtures/torch_episode_reference.npz'
-REFERENCE_FLOOR = 'tests/fixtures/chaos_floor.json'
-PORT_FLOOR = 'tests/fixtures/torch_chaos_floor.json'
-EPISODE_TASKS = ('MatchRegions', 'ClusterColour')
-EPISODE_BISECT, BISECT_ATOL = 20, 1e-5
+EPISODE_FLOOR = 'tests/fixtures/torch_episode_floor.json'
+EPISODE_TASKS = ('MoveToCorner', 'MatchRegions', 'ClusterColour')
+EPISODE_STATS = ('dpos_median', 'dpos_p90', 'frac_within_0p05',
+                 'dscore_mean')
+EPISODE_BISECT, BISECT_ATOL, BISECT_NUDGES = 20, 1e-5, 16
+DETERMINISM_RUNS = 32
 # `parity`: scenes a family and variant, each run under PARITY_REPEAT
 # action sequences (CHECK_BATCH envs, where phys_compare's 1-ulp tail is
 # calibrated), K1 steps, the last steps, held against the plain version,
@@ -1251,8 +1263,8 @@ def fixture_state(data, task, which):
 
 
 def dpos_stats(pos, ref_pos):
-    """scripts/chaos_floor.py:83-95 (and tests/test_torch_episode.py): the
-    per-body position distance of two end states, its median, 90th
+    """scripts/chaos_floor.py:83-95 (and tests/_torch_episode_fixture.py):
+    the per-body position distance of two end states, its median, 90th
     percentile and share within 0.05."""
     import numpy as np
     dpos = np.linalg.norm(np.asarray(pos, np.float32)
@@ -1262,56 +1274,105 @@ def dpos_stats(pos, ref_pos):
                 frac_within_0p05=float((dpos < 0.05).mean()))
 
 
-def episode_floors(task):
-    """(the gate K1 is held to, the reference's own bound) of `task`."""
-    with open(os.path.join(ROOT, PORT_FLOOR)) as f:
-        gate = json.load(f)[task]['gate']
-    with open(os.path.join(ROOT, REFERENCE_FLOOR)) as f:
-        ref = json.load(f)[task]
-    return gate, ref
+def nudge_up(k, shape):
+    """tests/_torch_episode_fixture.py's 1-ulp draws: which position
+    coordinates draw k moves up (all for k = 0; the rest go down)."""
+    import numpy as np
+    if k == 0:
+        return np.ones(shape, bool)
+    return np.random.RandomState(k).randint(0, 2, shape).astype(bool)
 
 
-def episode_bisect(data, task, k1_pos):
-    """Env 0 of K1 (`k1_pos`, its positions after each of the first
-    EPISODE_BISECT steps) against the plain version on the card, and the
-    plain version from env 0 with every position 1 ulp up: the first step
+def episode_bisect(data, task, env, k1_pos):
+    """Env `env` of K1 (`k1_pos`, its positions after each of the first
+    EPISODE_BISECT steps) against the plain version on the card from the
+    same reset under the same actions, and the plain version from that
+    reset under BISECT_NUDGES 1-ulp draws of its positions: the first step
     at which K1 leaves the plain version by more than BISECT_ATOL, and how
-    far the nudge has left it by then, which must be at least as far."""
+    far the draws have left it by then.  Returns whether K1 is no further
+    than the furthest draw there (True if it stays within BISECT_ATOL)."""
     import numpy as np
     import torch
     from magical_tpu_torch.core import physics
     from magical_tpu_torch.core.convert import state_from_numpy
     reset = fixture_state(data, task, 'reset')
-    rows = {k: np.concatenate([v[:1], v[:1]]) for k, v in reset.items()}
-    rows['pos'][1] = np.nextafter(rows['pos'][1], np.float32(np.inf))
+    rows = {k: np.repeat(v[env:env + 1], BISECT_NUDGES + 1, 0)
+            for k, v in reset.items()}
+    pos = rows['pos'][1:]
+    for k in range(BISECT_NUDGES):
+        pos[k] = np.where(nudge_up(k, pos[k].shape),
+                          np.nextafter(pos[k], np.float32(np.inf)),
+                          np.nextafter(pos[k], np.float32(-np.inf)))
     st = state_from_numpy(rows, DEVICE)
+    acts = data[f'{task}/actions'][:, env]
     for t, p in enumerate(k1_pos, 1):
         st = physics.control_step(st, torch.full(
-            (2,), int(data['actions'][t - 1]), dtype=torch.int32,
+            (BISECT_NUDGES + 1,), int(acts[t - 1]), dtype=torch.int32,
             device=DEVICE))
-        plain = st.pos[0].cpu().numpy()
-        k_off = float(np.linalg.norm(p - plain, axis=-1).max())
+        plain = st.pos.cpu().numpy()
+        k_off = float(np.linalg.norm(p - plain[0], axis=-1).max())
         if k_off > BISECT_ATOL:
-            nudge = float(np.linalg.norm(st.pos[1].cpu().numpy() - plain,
-                                         axis=-1).max())
-            print(f'[episode] {task} bisect: K1 first leaves the plain version '
-                  f'by more than {BISECT_ATOL:.0e} at step {t} ({k_off:.3e}); '
-                  f'the plain version\'s own 1-ulp nudge has left it by '
-                  f'{nudge:.3e} there')
-            if k_off > nudge:
-                raise AssertionError(f'episode {task}: K1 leaves the plain '
-                                     f'version further than a 1-ulp nudge')
-            return t
-    print(f'[episode] {task} bisect: K1 within {BISECT_ATOL:.0e} of the plain '
-          f'version for {len(k1_pos)} steps')
-    return None
+            off = np.linalg.norm(plain[1:] - plain[:1], axis=-1).max(-1)
+            q = np.percentile(off, [0, 50, 100])
+            ok = k_off <= q[2]
+            print(f'[episode] {task} env {env} bisect: K1 first leaves the '
+                  f'plain version by more than {BISECT_ATOL:.0e} at step {t} '
+                  f'({k_off:.3e}); the plain version\'s {BISECT_NUDGES} 1-ulp '
+                  f'draws have left it by min/median/max {q[0]:.3e}/'
+                  f'{q[1]:.3e}/{q[2]:.3e} there' + ('' if ok else
+                                                   ': K1 is further'))
+            return ok
+    print(f'[episode] {task} env {env} bisect: K1 within {BISECT_ATOL:.0e} '
+          f'of the plain version for {len(k1_pos)} steps')
+    return True
+
+
+def gate_verdicts(stats, bound):
+    """{statistic: whether `stats` holds the gate `bound`} (the share within
+    0.05 from below, the rest from above)."""
+    return {s: stats[s] >= bound[s] if s.startswith('frac')
+            else stats[s] <= bound[s] for s in EPISODE_STATS}
+
+
+def end_stats(st, task, data):
+    """The gate's statistics of the end state `st` of `task`'s leg against
+    the reference's end poses and scores."""
+    import numpy as np
+    from magical_tpu_torch.tasks import ALL_TASKS
+    score = ALL_TASKS[task].score_fn(st).cpu().numpy()
+    return dict(dpos_stats(st.pos.cpu().numpy(), data[f'{task}/end/pos']),
+                dscore_mean=float(np.mean(np.abs(
+                    score.astype(np.float64) - data[f'{task}/score'])))), score
+
+
+def draws_against_the_gate(fl):
+    """How many of the reference's own draws miss the gate that the rule
+    makes of the other draws (the gate's false alarms on the reference)."""
+    import numpy as np
+    draws = {s: np.asarray(fl['draws'][s]) for s in EPISODE_STATS}
+    n = len(draws[EPISODE_STATS[0]])
+    missed = 0
+    for k in range(n):
+        rest = {s: np.delete(x, k) for s, x in draws.items()}
+        bound = {s: float(np.percentile(rest[s], 10 if s.startswith('frac')
+                                        else 90)) for s in EPISODE_STATS}
+        missed += not all(gate_verdicts({s: draws[s][k] for s in draws},
+                                        bound).values())
+    return missed, n
 
 
 def phase_episode():
-    """K1 over the whole episode of EPISODE_FIXTURE's legs, from its JAX
-    resets: the end poses within the gate of episode_floors, and the end
-    scores equal to the reference's env by env; then the bisect of
-    episode_bisect.  Returns K1's launches per task."""
+    """K1 over the whole episode of each leg of EPISODE_FIXTURE, from its
+    JAX resets, each env under its own actions: the end poses and the mean
+    |score difference| held to the gate of EPISODE_FLOOR (the reference's
+    own 1-ulp floor over the same 64 trajectories) with no allowance, each
+    statistic printed with its bound, K1's verdict and the reference
+    draws' 0.1, 0.5 and 0.9 quantiles, and how many of those draws miss
+    the gate the other draws make; then the bisect of episode_bisect on
+    env 0 and on the env where K1 ends furthest from the reference.  A
+    missed statistic or a fault the bisect pins on K1 fails the phase,
+    after every leg has run.  Returns K1's launches per task and each
+    leg's gate_verdicts."""
     import numpy as np
     import torch
     from magical_tpu_torch.core import physics_kernel
@@ -1319,23 +1380,26 @@ def phase_episode():
     from magical_tpu_torch.tasks import ALL_TASKS
     with np.load(os.path.join(ROOT, EPISODE_FIXTURE)) as f:
         data = {k: f[k] for k in f.files}
-    launches = {}
+    with open(os.path.join(ROOT, EPISODE_FLOOR)) as f:
+        floor = json.load(f)
+    launches, verdicts, pinned = {}, {}, []
     for task in EPISODE_TASKS:
         n_steps = ALL_TASKS[task].ep_len
+        acts = torch.as_tensor(data[f'{task}/actions'], device=DEVICE)
         st = state_from_numpy(fixture_state(data, task, 'reset'), DEVICE)
         B = st.batch
-        acts = torch.as_tensor(data['actions'][:n_steps], device=DEVICE)
+        if tuple(acts.shape) != (n_steps, B):
+            raise AssertionError(f'episode {task}: actions {acts.shape}')
         trace = {int(s): i for i, s in enumerate(data[f'{task}/trace_steps'])}
         zero_counts()
         t0 = time.perf_counter()
         seen, k1_pos = [], []
         for t in range(n_steps):
-            st = physics_kernel.control_step(
-                st, acts[t].to(torch.int32).expand(B).contiguous())
+            st = physics_kernel.control_step(st, acts[t])
             if t + 1 in trace:
                 seen.append((t + 1, st.pos.cpu().numpy()))
             if t < EPISODE_BISECT:
-                k1_pos.append(st.pos[0].cpu().numpy())
+                k1_pos.append(st.pos.cpu().numpy())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches[task] = read_counts()['K1']
@@ -1344,40 +1408,98 @@ def phase_episode():
                                  f'{launches[task]} != {n_steps}')
         # where the divergence grows: the largest and the median body
         # distance at each traced step
-        print(f'[episode] {task}: |pos - reference| max/median at steps '
+        print(f'[episode] {task}: K1 |pos - reference| max/median at steps '
               + ', '.join(
                   f'{s} {d.max():.2e}/{np.median(d):.2e}' for s, d in (
                       (s, np.linalg.norm(p - data[f'{task}/trace_pos'][
                           trace[s]], axis=-1)) for s, p in seen)))
-        stats = dpos_stats(st.pos.cpu().numpy(), data[f'{task}/end/pos'])
-        bound, ref = episode_floors(task)
-        score = ALL_TASKS[task].score_fn(st).cpu().numpy()
+        stats, score = end_stats(st, task, data)
         want = data[f'{task}/score']
-        print(f'[episode] {task} B={B}, {n_steps} K1 steps in {dt:.3f} s '
-              f'(host clock): dpos median {stats["dpos_median"]:.6e} <= '
-              f'{bound["dpos_median"]:.6e}, p90 {stats["dpos_p90"]:.6e} <= '
-              f'{bound["dpos_p90"]:.6e}, within 0.05 '
-              f'{stats["frac_within_0p05"]:.6f} >= '
-              f'{bound["frac_within_0p05"]:.6f}; scores equal to the '
-              f'reference in {int((score == want).sum())} of {B} envs '
-              f'(mean {float(score.mean()):.6f}, reference '
-              f'{float(want.mean()):.6f})')
-        print(f'[episode] {task}: the reference\'s own 1-ulp bound '
-              f'(median {ref["dpos_median"]:.6e}, p90 {ref["dpos_p90"]:.6e}, '
-              f'within 0.05 {ref["frac_within_0p05"]:.6f}) '
-              + ('held' if stats['dpos_median'] <= ref['dpos_median']
-                 and stats['dpos_p90'] <= ref['dpos_p90']
-                 and stats['frac_within_0p05'] >= ref['frac_within_0p05']
-                 else 'not held') + f'; the gate: {bound["rule"]}')
-        episode_bisect(data, task, k1_pos)
-        if not (stats['dpos_median'] <= bound['dpos_median']
-                and stats['dpos_p90'] <= bound['dpos_p90']
-                and stats['frac_within_0p05'] >= bound['frac_within_0p05']):
-            raise AssertionError(f'episode {task}: K1 left the chaos floor')
-        if not np.array_equal(score, want):
-            raise AssertionError(f'episode {task}: scores differ from the '
-                                 f'reference')
-    return launches
+        fl = floor[task]
+        bound = fl['gate']
+        held = gate_verdicts(stats, bound)
+        missed, n = draws_against_the_gate(fl)
+        print(f'[episode] {task} B={B}, mb {st.max_blocks}, {n_steps} K1 '
+              f'steps in {dt:.3f} s (host clock); end scores above 0: K1 '
+              f'{int((score > 0).sum())}, reference {int((want > 0).sum())} '
+              f'of {B} (mean {float(score.mean()):.6f}, reference '
+              f'{float(want.mean()):.6f}); the gate: {fl["rule"]}; '
+              f'{missed} of the reference\'s {n} draws miss the gate of the '
+              f'other {n - 1}')
+        for s in EPISODE_STATS:
+            q = np.percentile(fl['draws'][s], [10, 50, 90])
+            print(f'[episode] {task} {s}: K1 {stats[s]:.6e} '
+                  f'{">=" if s.startswith("frac") else "<="} '
+                  f'{bound[s]:.6e} ({"held" if held[s] else "NOT held"}); '
+                  f'the reference\'s {fl["n_draws"]} 1-ulp draws 0.1/0.5/0.9 '
+                  f'quantiles {q[0]:.6e}/{q[1]:.6e}/{q[2]:.6e}')
+        verdicts[task] = held
+        worst = int(np.linalg.norm(st.pos.cpu().numpy()
+                                   - data[f'{task}/end/pos'],
+                                   axis=-1).max(-1).argmax())
+        for env in sorted({0, worst}):
+            if not episode_bisect(data, task, env,
+                                  [p[env] for p in k1_pos]):
+                pinned.append((task, env))
+    print('[episode] K1 held the gate on ' + ', '.join(
+        f'{t} {sum(v.values())} of {len(EPISODE_STATS)}'
+        for t, v in verdicts.items()) + ' statistics; the bisect pins '
+        + (f'K1 on {pinned}' if pinned else 'nothing on K1'))
+    missed = [t for t, v in verdicts.items() if not all(v.values())]
+    if missed or pinned:
+        raise AssertionError(f'episode: K1 missed the reference\'s 1-ulp '
+                             f'gate on {missed}; the bisect pins K1 on '
+                             f'{pinned}')
+    return launches, verdicts
+
+
+def parity_case():
+    """`[parity]`'s MoveToCorner-Demo case at PARITY_SCENES envs: the
+    parity scenes of seeds 0.. built by state_from_spec, PARITY_STEPS - 1
+    K1 steps under the actions a batch of PARITY_SCENES envs draws from the
+    phase's generator (seed SEED + 7).  Returns that state and the last
+    step's actions."""
+    import torch
+    from magical_tpu_torch.api.batched_env import BatchedEnv
+    from magical_tpu_torch.core import physics_kernel
+    from magical_tpu_torch.data import parity
+    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0', device=DEVICE)
+    specs, _ = parity_specs('MoveToCorner', env.flags)
+    st = parity.state_from_spec(specs, env.task.max_blocks,
+                                env.task.max_goals, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    acts = torch.randint(0, 18, (PARITY_STEPS, st.batch), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    for t in range(PARITY_STEPS - 1):
+        st = physics_kernel.control_step(st, acts[t])
+    return st, acts[-1]
+
+
+def phase_determinism(wide_state):
+    """K1 DETERMINISM_RUNS times on the same inputs, each run's whole
+    state bit for bit the first's: on parity_case's 64 MoveToCorner envs
+    and on `wide_state` (ClusterColour-TestAll, mb 10, MAIN_BATCH envs)
+    under seeded random actions."""
+    import dataclasses
+    import torch
+    from magical_tpu_torch.core import physics_kernel
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    wide_act = torch.randint(0, 18, (wide_state.batch,), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+    for label, (st, act) in (
+            ('MoveToCorner-Demo parity case', parity_case()),
+            ('ClusterColour-TestAll', (wide_state, wide_act))):
+        runs = [physics_kernel.control_step(st.clone(), act)
+                for _ in range(DETERMINISM_RUNS)]
+        same = sum(all(torch.equal(getattr(r, f.name),
+                                   getattr(runs[0], f.name))
+                       for f in dataclasses.fields(r)) for r in runs)
+        print(f'[determinism] {label}, B={st.batch}, mb {st.max_blocks}: K1 '
+              f'{same} of {DETERMINISM_RUNS} runs on the same inputs bit for '
+              f'bit the first')
+        if same != DETERMINISM_RUNS:
+            raise AssertionError(f'determinism {label}: K1 gave other bits '
+                                 f'in {DETERMINISM_RUNS - same} runs')
 
 
 def repeat_env(state, env, n):
@@ -2352,7 +2474,8 @@ def main():
     times = timed('times', phase_times, cases)
     step_rest(env, carry)
     step_rest(lo_env, lo_carry)
-    timed('episode', phase_episode)
+    _, episode = timed('episode', phase_episode)
+    timed('determinism', phase_determinism, lo_carry.state)
     timed('parity', phase_parity)
     timed('eval', phase_eval, smi)
     train_launches, train_gail_s = timed('train', phase_train, smi)
@@ -2408,6 +2531,9 @@ def main():
           f'iteration over the mesh {dist_out["gail_s"]:.3f} s ([train] '
           f'{train_gail_s:.3f} s); [sweep] launches {sweep_launches}; '
           f'[train] launches {train_launches}')
+    print('[result] [episode] the reference\'s 1-ulp gate held by K1 on '
+          + ', '.join(f'{t} {sum(v.values())}/{len(v)}'
+                      for t, v in episode.items()) + ' statistics')
     print('[result] phase wall times: '
           + ', '.join(f'{k} {v:.1f} s' for k, v in wall.items()))
     print(smi)

@@ -337,6 +337,9 @@ __host__ __device__ void wall_contacts(const Poly& p, float wnx, float wny,
 // every lane runs the statement with its own `lane`, then the warp syncs;
 // in a host build one thread runs it for each lane in turn, which is the
 // same thing, since within a phase no lane reads what another lane writes.
+// The host build runs the lanes in the order MAGICAL_HOST_LANE(i) gives
+// (lane i unless the includer defines it), so that a test can run them in
+// other orders: a phase that broke the rule would give other bits.
 constexpr int LANES = 32;
 #ifdef __CUDA_ARCH__
 #define WARP_PHASE(...) \
@@ -345,9 +348,13 @@ constexpr int LANES = 32;
     __syncwarp();       \
   } while (0)
 #else
+#ifndef MAGICAL_HOST_LANE
+#define MAGICAL_HOST_LANE(i) (i)
+#endif
 #define WARP_PHASE(...)                                  \
   do {                                                   \
-    for (int lane = 0; lane < LANES; ++lane) {           \
+    for (int lane_i = 0; lane_i < LANES; ++lane_i) {     \
+      const int lane = MAGICAL_HOST_LANE(lane_i);        \
       __VA_ARGS__;                                       \
     }                                                    \
   } while (0)

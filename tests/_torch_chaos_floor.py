@@ -1,41 +1,25 @@
-"""Write tests/fixtures/torch_chaos_floor.json: the 1-ulp self-divergence
-of magical_tpu_torch's own plain physics over the episodes of
-tests/fixtures/torch_episode_reference.npz, and the gate that
-chip_smoke.py's `[episode]` phase holds the control-step kernel to.
+"""Write tests/fixtures/torch_chaos_floor.json: a bisect of the
+control-step kernel's own arithmetic (K1, ``csrc/physics_step.cuh``), built
+for the host with ``-ffp-contract=off`` through tests/kernel_host_shim.cpp
+as tests/test_torch_kernel_host.py builds it, against the port's plain
+physics over env 0 of each leg of tests/fixtures/torch_episode_reference.npz
+(scripts/chaos_floor.py's action script from the Demo reset).
 
-This is scripts/chaos_floor.py's experiment run on the port's plain path
-instead of the reference's XLA path: the same episode twice, identical
-except that every initial position is moved 1 ulp, and the end positions
-compared by the same statistics (`dpos` median, 90th percentile, share
-within 0.05).  The reference ran it once, every position up
-(tests/fixtures/chaos_floor.json).  Here it runs N_DRAWS times: draw 0
-moves every position up, as the reference did, and draw k > 0 moves each
-position coordinate up or down by a sign drawn from RandomState(k).  The
-fixture's 64 Demo resets are identical, so one env is stepped and its end
-state repeated 64 times before the statistics, which then equal those of
-64 envs; so each draw is one draw of the chaotic divergence of one
-trajectory, and the draws give its distribution.
+Beside them run N_NUDGES 1-ulp draws of the plain path from env 0's reset
+(each position coordinate moved up or down by
+tests/_torch_episode_fixture.nudge_up).  The step at which the host-built
+kernel first leaves the plain path by more than BISECT_ATOL (a body's
+position), and how far the draws have left the plain path by then, tell a
+fault of the kernel from a difference in rounding; the end poses of the
+kernel and of the plain path are compared with the reference's env 0 by
+the fixture's `dpos_stats` (over that env's bodies).
 
-`gate` is, for each statistic, the looser of the reference's bound and
-the GATE_QUANTILE quantile of the port's draws (the 1 - GATE_QUANTILE
-quantile of the share within 0.05): a path that rounds apart from the
-reference (a GPU kernel's sums and libm) lands on one such draw, and one
-in ten 1-ulp draws of the plain path lies beyond this gate.  The plain
-path itself is held to the reference's bound alone
-(tests/test_torch_episode.py).
+No gate reads this file: the port is held to the reference's own 1-ulp
+floor over the fixture's 64 trajectories (torch_episode_floor.json).
 
-Beside them runs the control-step kernel's own arithmetic (K1,
-``csrc/physics_step.cuh``) built for the host with ``-ffp-contract=off``
-through tests/kernel_host_shim.cpp, as tests/test_torch_kernel_host.py
-builds it: the step at which it first leaves the plain path by more than
-1e-5 (a body's position), and how far the 1-ulp draws have left the
-plain path by then, bisect a divergence of the kernel from the reference.
+Run (no JAX; a few minutes on 4 CPU threads, most of it ClusterColour):
 
-Run (no JAX; MatchRegions ~10 minutes and ClusterColour ~40 on 4 CPU
-threads; name tasks to rewrite only their entries, e.g. in two
-processes):
-
-    python tests/_torch_chaos_floor.py [MatchRegions] [ClusterColour]
+    python tests/_torch_chaos_floor.py [TASK ...]
 """
 
 import ctypes
@@ -51,46 +35,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, 'tests'))
 
-FIXTURE = os.path.join(REPO, 'tests', 'fixtures',
-                       'torch_episode_reference.npz')
-REFERENCE = os.path.join(REPO, 'tests', 'fixtures', 'chaos_floor.json')
+from _torch_episode_fixture import (OUT as FIXTURE, TASKS,  # noqa: E402
+                                    dpos_stats, nudged)
+
 OUT = os.path.join(REPO, 'tests', 'fixtures', 'torch_chaos_floor.json')
-TASKS = ('MatchRegions', 'ClusterColour')
-N_DRAWS = 64
-GATE_QUANTILE = 0.9
-STATS = ('dpos_median', 'dpos_p90', 'frac_within_0p05')
+N_NUDGES = 16
 BISECT_ATOL = 1e-5
-
-
-def dpos_stats(pos, ref_pos):
-    """scripts/chaos_floor.py:83-95's statistics of two end states."""
-    dpos = np.linalg.norm(np.asarray(pos, np.float32)
-                          - np.asarray(ref_pos, np.float32), axis=-1)
-    return dict(dpos_median=float(np.median(dpos)),
-                dpos_p90=float(np.percentile(dpos, 90)),
-                frac_within_0p05=float((dpos < 0.05).mean()))
-
-
-def nudge_up(k, shape):
-    """Which position coordinates draw k moves up (the rest go down)."""
-    if k == 0:
-        return np.ones(shape, bool)
-    return np.random.RandomState(k).randint(0, 2, shape).astype(bool)
-
-
-def gate(reference, draws):
-    """Per statistic, the looser of the reference's bound and the
-    GATE_QUANTILE quantile of the draws ({statistic: [one a draw]})."""
-    q = 100 * GATE_QUANTILE
-    return dict(
-        dpos_median=max(reference['dpos_median'],
-                        float(np.percentile(draws['dpos_median'], q))),
-        dpos_p90=max(reference['dpos_p90'],
-                     float(np.percentile(draws['dpos_p90'], q))),
-        frac_within_0p05=min(reference['frac_within_0p05'],
-                             float(np.percentile(draws['frac_within_0p05'],
-                                                 100 - q))))
 
 
 def host_kernel(tmp):
@@ -109,38 +61,30 @@ def host_kernel(tmp):
     return fn
 
 
-def floor_of(task, data, kernel, reference):
-    """The entry of `task`: the draws' statistics, the gate, and the plain
-    path and the host-built kernel against the reference."""
+def bisect_of(task, data, kernel):
+    """The entry of `task`: the host-built kernel and the plain path from
+    env 0, against each other, the draws and the reference."""
     import torch
 
     from magical_tpu_torch import constants as C
     from magical_tpu_torch.core import physics, physics_kernel
     from magical_tpu_torch.core.convert import state_from_numpy
     from magical_tpu_torch.core.state import EnvState
-    from magical_tpu_torch.tasks import ALL_TASKS
 
-    reset = {f.name: data[f'{task}/reset/{f.name}']
+    reset = {f.name: data[f'{task}/reset/{f.name}'][:1]
              for f in dataclasses.fields(EnvState)}
-    B = len(reset['pos'])
-    if not all((v == v[:1]).all() for v in reset.values()):
-        raise SystemExit(f'{task}: the fixture resets differ; step all {B} '
-                         f'envs')
+    acts = data[f'{task}/actions'][:, 0]
     # env 0, then env 0 under each draw, in one batch
-    rows = {k: np.repeat(v[:1], N_DRAWS + 1, 0) for k, v in reset.items()}
-    pos = rows['pos'][1:]
-    for k in range(N_DRAWS):
-        pos[k] = np.where(nudge_up(k, pos[k].shape),
-                          np.nextafter(pos[k], np.float32(np.inf)),
-                          np.nextafter(pos[k], np.float32(-np.inf)))
+    rows = {k: np.repeat(v, N_NUDGES + 1, 0) for k, v in reset.items()}
+    for k in range(N_NUDGES):
+        rows['pos'][k + 1] = nudged(rows['pos'][k + 1], k)
     st = state_from_numpy(rows, 'cpu')
-    sk = state_from_numpy({k: v[:1] for k, v in reset.items()}, 'cpu')
+    sk = state_from_numpy(reset, 'cpu')
     ftab, itab, _ = physics_kernel.table_arrays(sk.max_blocks)
     ftab, itab = torch.from_numpy(ftab), torch.from_numpy(itab)
-    n_steps = ALL_TASKS[task].ep_len
     bisect = None
-    for t, a in enumerate(data['actions'][:n_steps], 1):
-        act = torch.full((N_DRAWS + 1,), int(a), dtype=torch.int32)
+    for t, a in enumerate(acts, 1):
+        act = torch.full((N_NUDGES + 1,), int(a), dtype=torch.int32)
         physics_kernel.check_inputs(sk, act[:1])
         if kernel(*physics_kernel.kernel_args(
                 sk, act[:1], ftab, itab, phys_steps=C.PHYS_STEPS),
@@ -154,27 +98,16 @@ def floor_of(task, data, kernel, reference):
                       'draws_vs_plain': dict(
                           min=float(off.min()), median=float(np.median(off)),
                           max=float(off.max()))}
-        if t % 20 == 0:
-            print(f'{task}: step {t} of {n_steps}', flush=True)
-    end = np.repeat(st.pos.numpy()[:, None], B, 1)      # (rows, B, NB, 2)
-    k_end = np.repeat(sk.pos.numpy(), B, 0)
-    ref = data[f'{task}/end/pos']
-    per_draw = [dpos_stats(end[k + 1], end[0]) for k in range(N_DRAWS)]
-    draws = {s: [d[s] for d in per_draw] for s in STATS}
-    return {'B': B, 'n_steps': n_steps, 'perturb': '1 ulp on pos',
-            **per_draw[0],
-            'draws': {'perturb': '1 ulp on every pos coordinate; draw 0 all '
-                                 'up, draw k > 0 up or down by '
-                                 'RandomState(k)',
-                      'n': N_DRAWS, **draws},
-            'gate': {**gate(reference, draws),
-                     'rule': f'per statistic the looser of chaos_floor.json '
-                             f'and the {GATE_QUANTILE} quantile of the draws '
-                             f'(the share within 0.05: the '
-                             f'{1 - GATE_QUANTILE:.1f} quantile)'},
-            'plain_vs_reference': dpos_stats(end[0], ref),
-            'host_kernel_vs_reference': dpos_stats(k_end, ref),
-            'host_kernel_vs_plain': dpos_stats(k_end, end[0]),
+    ref = data[f'{task}/end/pos'][:1]
+    end = st.pos.numpy()
+    off = np.linalg.norm(end[1:] - end[:1], axis=-1).max(-1)
+    return {'env': 0, 'n_steps': len(acts), 'n_nudges': N_NUDGES,
+            'plain_vs_reference': dpos_stats(end[:1], ref),
+            'host_kernel_vs_reference': dpos_stats(sk.pos.numpy(), ref),
+            'host_kernel_vs_plain': dpos_stats(sk.pos.numpy(), end[:1]),
+            'draws_vs_plain_at_the_end': dict(
+                min=float(off.min()), median=float(np.median(off)),
+                max=float(off.max())),
             'bisect': bisect}
 
 
@@ -189,10 +122,7 @@ def main(tasks):
         shutil.rmtree(tmp)
     with np.load(FIXTURE) as f:
         data = {k: f[k] for k in f.files}
-    with open(REFERENCE) as f:
-        reference = json.load(f)
-    rows = {task: floor_of(task, data, kernel, reference[task])
-            for task in tasks}
+    rows = {task: bisect_of(task, data, kernel) for task in tasks}
     # other tasks' entries stay as they are
     out = {}
     if os.path.exists(OUT):
@@ -202,9 +132,7 @@ def main(tasks):
     with open(OUT, 'w') as f:
         json.dump({t: out[t] for t in TASKS if t in out}, f, indent=1)
     for task, row in rows.items():
-        print(task, json.dumps({k: row[k] for k in (
-            *STATS, 'gate', 'plain_vs_reference', 'host_kernel_vs_reference',
-            'bisect')}), flush=True)
+        print(task, json.dumps(row), flush=True)
     print(f'wrote {OUT}', flush=True)
 
 

@@ -1,13 +1,13 @@
 """Re-run on the card the case of chip_smoke.py's `[parity]` phase at 64
-envs: MoveToCorner-Demo's parity scenes of seeds 0-63 built by
-`state_from_spec`, PARITY_STEPS - 1 control-kernel (K1) steps under the
-actions a 64-env batch draws from the phase's generator (seed SEED + 7),
-then the last step three ways: K1 twice, and the plain version REPEATS
-times in `phys_compare`'s batch of 128 envs (the scenes, then the scenes
-with every position 1 ulp up).  It prints K1's largest error against each
-plain run, the plain version's own run-to-run spread, and, for the env
-where K1 is furthest from the plain version, 64 distinct 1-ulp nudges of
-that env (chip_smoke.nudge_spread).
+envs (chip_smoke.parity_case): MoveToCorner-Demo's parity scenes of seeds
+0-63 built by `state_from_spec`, PARITY_STEPS - 1 control-kernel (K1)
+steps under the actions a 64-env batch draws from the phase's generator
+(seed SEED + 7), then the last step three ways: K1 twice, and the plain
+version REPEATS times in `phys_compare`'s batch of 128 envs (the scenes,
+then the scenes with every position 1 ulp up).  It prints K1's largest
+error against each plain run, the plain version's own run-to-run spread,
+and, for the env where K1 is furthest from the plain version, 64 distinct
+1-ulp nudges of that env (chip_smoke.nudge_spread).
 
 Run on a CUDA machine from the root of the repository (no JAX):
 
@@ -27,21 +27,10 @@ def main():
     import torch
 
     import chip_smoke as cs
-    from magical_tpu_torch.api.batched_env import BatchedEnv
     from magical_tpu_torch.core import physics, physics_kernel
-    from magical_tpu_torch.data import parity
 
-    env = BatchedEnv('MoveToCorner-Demo-LoRes4E-v0', device=cs.DEVICE)
-    specs, _ = cs.parity_specs('MoveToCorner', env.flags)
-    st = parity.state_from_spec(specs, env.task.max_blocks,
-                                env.task.max_goals, device=cs.DEVICE)
+    st, a = cs.parity_case()
     B = st.batch
-    gen = torch.Generator(device=cs.DEVICE).manual_seed(cs.SEED + 7)
-    acts = torch.randint(0, 18, (cs.PARITY_STEPS, B), generator=gen,
-                         device=cs.DEVICE, dtype=torch.int32)
-    for t in range(cs.PARITY_STEPS - 1):
-        st = physics_kernel.control_step(st, acts[t])
-    a = acts[-1]
     k = [physics_kernel.control_step(st.clone(), a).pos for _ in range(2)]
     if not torch.equal(k[0], k[1]):
         raise AssertionError('K1: two runs on the same inputs differ')

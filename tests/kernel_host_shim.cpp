@@ -40,6 +40,16 @@ float shim_sinf(float x) { return shim_trig(g_sin, x, sinf); }
 #define MAGICAL_RENDER_COSF shim_cosf
 #define MAGICAL_RENDER_SINF shim_sinf
 
+// The order in which the control step's phases run their lanes
+// (physics_set_lane_order): on the card the lanes of a phase run at once,
+// so its result may depend on no order.
+namespace {
+int g_lane_order[32] = {0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10,
+                        11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
+                        22, 23, 24, 25, 26, 27, 28, 29, 30, 31};
+}  // namespace
+#define MAGICAL_HOST_LANE(i) (g_lane_order[i])
+
 #include "physics_step.cuh"
 #include "render_lo.cuh"
 
@@ -58,6 +68,21 @@ extern "C" int render_set_trig(const float* x, const float* c,
 }
 
 extern "C" long render_trig_misses() { return g_trig_misses; }
+
+// Run the lanes of every phase in the order order[0..31], a permutation of
+// 0..31; anything else is refused (1) and leaves the order as it was.
+extern "C" int physics_set_lane_order(const int* order) {
+  static_assert(sizeof g_lane_order / sizeof *g_lane_order == magical::LANES,
+                "an order entry a lane");
+  bool seen[magical::LANES] = {};
+  for (int i = 0; i < magical::LANES; ++i) {
+    if (order[i] < 0 || order[i] >= magical::LANES || seen[order[i]])
+      return 1;
+    seen[order[i]] = true;
+  }
+  memcpy(g_lane_order, order, sizeof g_lane_order);
+  return 0;
+}
 
 extern "C" int physics_table_layout(int* out) {
   out[0] = magical::FT_CAND_FRICTION;

@@ -11,6 +11,7 @@ plain versions by ``chip_smoke.py``.
 """
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -52,7 +53,9 @@ def host_lib(tmp_path_factory):
     sigs['render_build_display'] = sigs['render_lo_frame'][:-1] + [P] * 5
     sigs['render_prim_bboxes'] = sigs['render_lo_frame'][:-1] + [P] * 2
     sigs['render_set_trig'] = [P] * 3 + [ctypes.c_int]
+    sigs['physics_set_lane_order'] = [P]
     for name in ('physics_table_layout', 'physics_control_step',
+                 'physics_set_lane_order',
                  'render_program_layout', 'render_lo_frame',
                  'render_build_display', 'render_hi_frame',
                  'render_lo_tiles2d', 'render_prim_bboxes',
@@ -432,3 +435,51 @@ def test_warp_control_step_matches_plain_over_steps(host_lib, task):
                 assert float(err.median()) <= max(
                     floor, 2 * float(chaos.median())), (n, f)
         assert torch.equal(sk.t, sp.t)
+
+
+# The orders in which the host build runs each phase's lanes.
+LANE_ORDERS = {'forward': np.arange(32), 'reverse': np.arange(32)[::-1],
+               'permuted': np.random.RandomState(0).permutation(32)}
+
+
+def _set_lane_order(host_lib, order):
+    order = np.ascontiguousarray(order, np.int32)
+    return host_lib.physics_set_lane_order(order.ctypes.data)
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'MakeLine',
+                                  'ClusterColour'])
+def test_warp_control_step_is_the_same_in_every_lane_order(host_lib, task):
+    """On the card the lanes of a phase of control_step_warp run at once,
+    so no lane may read what another lane of the phase writes (WARP_PHASE,
+    csrc/physics_step.cuh); a phase that did would race there.  The host
+    build runs the lanes one by one, in an order the test chooses: at mb =
+    1, 4 and 10, from TestAll resets with every body moved and turned at
+    random (so that bodies touch), three control steps give the same bits
+    in every field with the lanes in order, in reverse and in a seeded
+    permutation."""
+    t = ALL_TASKS[task]
+    ftab, itab, _ = physics_kernel.table_arrays(t.max_blocks)
+    ftab, itab = torch.from_numpy(ftab), torch.from_numpy(itab)
+    B = 8
+    st, _, _ = _family_scene(task, 'TestAll', 4, B=B)
+    rng = np.random.default_rng(t.max_blocks)
+    acts = torch.from_numpy(rng.integers(0, 18, (3, B)).astype(np.int32))
+    runs = {}
+    try:
+        for name, order in LANE_ORDERS.items():
+            assert _set_lane_order(host_lib, order) == 0
+            sk, n_contact = st.clone(), 0
+            for a in acts:
+                sk = _kernel_step(host_lib, sk, a, ftab, itab, C.PHYS_STEPS)
+                n_contact += int((sk.con_id >= 0).sum())
+            runs[name] = sk
+            assert n_contact > 0
+        # not a permutation: refused
+        assert _set_lane_order(host_lib, np.zeros(32)) != 0
+    finally:
+        assert _set_lane_order(host_lib, LANE_ORDERS['forward']) == 0
+    for name, sk in runs.items():
+        for f in dataclasses.fields(sk):
+            assert torch.equal(getattr(sk, f.name),
+                               getattr(runs['forward'], f.name)), (name, f.name)
