@@ -74,18 +74,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
                tests/fixtures/torch_episode_reference.npz (JAX's Demo
                resets, 64 distinct action sequences a leg: MoveToCorner
                at mb 1, 80 steps; MatchRegions at mb 8, 120;
-               ClusterColour at mb 10, 240), read with numpy only: the
-               end poses (scripts/chaos_floor.py's `dpos` median, 90th
-               percentile and share within 0.05) and the mean |score
-               difference| held with no allowance to the `gate` of
-               tests/fixtures/torch_episode_floor.json, the reference's
-               own 1-ulp self-divergence over the same 64 trajectories
-               (per statistic the 0.9 quantile of its draws, the share's
-               0.1), each printed beside its bound and the draws'
-               quantiles; and, on env 0 and on the env where K1 ends
-               furthest from the reference, the first step at which K1
-               leaves the plain version no further than 16 1-ulp draws
-               of the plain version have by then.
+               ClusterColour at mb 10, 240), read with numpy only, held
+               to both parts of tests/fixtures/torch_episode_floor.json
+               by one permutation test each (`hold`, T a run's largest
+               log ratio to the median of all runs): the end part (the
+               end poses' `dpos` median, 90th percentile and share
+               within 0.05, against 16 XLA runs from resets moved 1 ulp;
+               level 1/17; the mean |score difference| recorded beside
+               it) and the step part (one K1 step into steps 1, 2, 4, 8,
+               16, 32 and the last from the reference's state before it:
+               per step and field of pos, angle, vel and omega the median
+               over the envs of the largest |difference|, against 64 XLA
+               steps from that state moved 1 ulp in those fields; level
+               1/65), each printed with K1's T, the draws' largest T and
+               each statistic's log ratio and rank; and, on env 0 and on
+               the env where K1 ends furthest from the reference, the
+               first step at which K1 leaves the plain version no further
+               than 16 1-ulp draws of the plain version have by then.
  10. determinism — K1 32 times on the same inputs, every run's state bit
                for bit the first's: `[parity]`'s 64-env MoveToCorner-Demo
                case and a 4096-env ClusterColour-TestAll state (mb 10).
@@ -188,15 +193,15 @@ TILES = ((16, 16), (32, 32))
 TILINGS = {'K3': ((16, 16), (32, 32), (48, 48), (96, 96)),
            'K4': ((8, 8), (16, 16), (32, 32), (96, 96))}
 # `episode`: the reference's whole episodes (three legs of 64 distinct
-# trajectories), the reference's own 1-ulp floor over them (whose `gate` K1
-# is held to) and its statistics, the steps over which K1 is bisected
-# against the plain version, and the 1-ulp nudges the bisect compares it
-# with; `determinism`: K1's runs on the same inputs.
+# trajectories), the reference's own 1-ulp draws over them (the two parts
+# of the hold K1 is held to), the steps over which K1 is bisected against
+# the plain version, and the 1-ulp nudges the bisect compares it with;
+# `determinism`: K1's runs on the same inputs.
 EPISODE_FIXTURE = 'tests/fixtures/torch_episode_reference.npz'
 EPISODE_FLOOR = 'tests/fixtures/torch_episode_floor.json'
+# the step part's fields (tests/_torch_episode_fixture.STEP_FIELDS)
+STEP_FIELDS = ('pos', 'angle', 'vel', 'omega')
 EPISODE_TASKS = ('MoveToCorner', 'MatchRegions', 'ClusterColour')
-EPISODE_STATS = ('dpos_median', 'dpos_p90', 'frac_within_0p05',
-                 'dscore_mean')
 EPISODE_BISECT, BISECT_ATOL, BISECT_NUDGES = 20, 1e-5, 16
 DETERMINISM_RUNS = 32
 # `parity`: scenes a family and variant, each run under PARITY_REPEAT
@@ -1327,16 +1332,62 @@ def episode_bisect(data, task, env, k1_pos):
     return True
 
 
-def gate_verdicts(stats, bound):
-    """{statistic: whether `stats` holds the gate `bound`} (the share within
-    0.05 from below, the rest from above)."""
-    return {s: stats[s] >= bound[s] if s.startswith('frac')
-            else stats[s] <= bound[s] for s in EPISODE_STATS}
+def worse_first(stat, x):
+    """tests/_torch_episode_fixture.worse_first: `x` oriented so that
+    higher is worse (the share within 0.05 as the share beyond it), NaN
+    the worst."""
+    import numpy as np
+    x = np.asarray(x, np.float64)
+    if stat.split('/')[-1].startswith('frac'):
+        x = 1 - x
+    return np.where(np.isnan(x), np.inf, x)
+
+
+def mid_ranks(x):
+    """Mid-ranks (1 = least) along the last axis, ties averaged."""
+    import numpy as np
+    x = np.asarray(x)
+    less = (x[..., None, :] < x[..., :, None]).sum(-1)
+    same = (x[..., None, :] == x[..., :, None]).sum(-1)
+    return less + (same + 1) / 2
+
+
+def log_ratios(runs):
+    """log(value / the median over the runs) of (S, R) oriented
+    statistics: 0 where a value equals the median, +inf where the median
+    is 0 and the value is not."""
+    import numpy as np
+    med = np.median(runs, -1, keepdims=True)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        return np.where(runs == med, 0.0, np.log(runs / med))
+
+
+def hold(candidate, draws):
+    """tests/_torch_episode_fixture.hold, the rule of the episode hold (a
+    tier-1 test holds the two copies to the same answer): `candidate`
+    {statistic: value} against `draws` {statistic: [one a draw]}, the
+    statistics of every leg of a part.  Each of the D + 1 runs gets, in
+    every statistic, the log of its value over the median of the D + 1
+    values, the worse the higher; T is a run's largest; the candidate
+    fails if its T is above every draw's (ties pass), which a candidate
+    exchangeable with the draws does with probability at most 1/(D + 1).
+    Returns {passed, T, T_draws_max, level, ratios, ranks}."""
+    import numpy as np
+    names = sorted(draws)
+    runs = np.stack([worse_first(s, np.concatenate(
+        [[candidate[s]], draws[s]])) for s in names])
+    lr = log_ratios(runs)
+    t = lr.max(0)
+    return dict(passed=bool(t[0] <= t[1:].max()), T=float(t[0]),
+                T_draws_max=float(t[1:].max()), level=1 / runs.shape[1],
+                ratios={s: float(r) for s, r in zip(names, lr[:, 0])},
+                ranks={s: float(r) for s, r in zip(
+                    names, mid_ranks(runs)[:, 0])})
 
 
 def end_stats(st, task, data):
-    """The gate's statistics of the end state `st` of `task`'s leg against
-    the reference's end poses and scores."""
+    """The end part's statistics of the end state `st` of `task`'s leg
+    against the reference's end poses and scores, and its scores."""
     import numpy as np
     from magical_tpu_torch.tasks import ALL_TASKS
     score = ALL_TASKS[task].score_fn(st).cpu().numpy()
@@ -1345,34 +1396,71 @@ def end_stats(st, task, data):
                     score.astype(np.float64) - data[f'{task}/score'])))), score
 
 
-def draws_against_the_gate(fl):
-    """How many of the reference's own draws miss the gate that the rule
-    makes of the other draws (the gate's false alarms on the reference)."""
+def step_stats(data, task, horizons):
+    """tests/_torch_episode_fixture.step_stats of K1: one K1 step into
+    each of `horizons` from the reference's state before it (`reset`
+    before step 1, `before<h>` else), its pos, angle, vel and omega
+    against the reference's after it (`end` after the last step,
+    `after<h>` else): per horizon and field the median over the envs of
+    the largest |difference|."""
     import numpy as np
-    draws = {s: np.asarray(fl['draws'][s]) for s in EPISODE_STATS}
-    n = len(draws[EPISODE_STATS[0]])
-    missed = 0
-    for k in range(n):
-        rest = {s: np.delete(x, k) for s, x in draws.items()}
-        bound = {s: float(np.percentile(rest[s], 10 if s.startswith('frac')
-                                        else 90)) for s in EPISODE_STATS}
-        missed += not all(gate_verdicts({s: draws[s][k] for s in draws},
-                                        bound).values())
-    return missed, n
+    import torch
+    from magical_tpu_torch.core import physics_kernel
+    from magical_tpu_torch.core.convert import state_from_numpy
+    out = {}
+    for h in horizons:
+        before = fixture_state(data, task, 'reset' if h == 1
+                               else f'before{h}')
+        after = 'end' if h == horizons[-1] else f'after{h}'
+        nxt = physics_kernel.control_step(
+            state_from_numpy(before, DEVICE),
+            torch.as_tensor(data[f'{task}/actions'][h - 1], device=DEVICE))
+        for f in STEP_FIELDS:
+            d = np.abs(getattr(nxt, f).cpu().numpy().astype(np.float64)
+                       - data[f'{task}/{after}/{f}'])
+            out[f'{f}_h{h}'] = float(np.median(d.reshape(len(d), -1).max(1)))
+    return out
+
+
+def print_hold(part, fl, stats):
+    """Hold `stats` ({'<task>/<stat>': K1's value}) to part `part` of the
+    floor `fl` and print its T, the draws' largest T, the level and each
+    statistic's log ratio and rank among the draws + 1 runs (a statistic
+    the part only records, beside the draws).  Returns hold's verdict."""
+    import numpy as np
+    recorded = fl[part].get('recorded', [])
+    every = {f'{t}/{s}': v for t, leg in fl[part]['legs'].items()
+             for s, v in leg['draws'].items()}
+    draws = {k: v for k, v in every.items()
+             if k.split('/')[1] not in recorded}
+    v = hold(stats, draws)
+    n = fl[part]['n_draws']
+    print(f'[episode] {part} part: K1 T {v["T"]:.4f}, the draws\' largest '
+          f'T {v["T_draws_max"]:.4f} ({"passed" if v["passed"] else "FAILED"}'
+          f'; level 1/{n + 1} = {v["level"]:.4f}, {n} draws; null: '
+          f'{fl[part]["null"]})')
+    for s in stats:
+        held = (f'log ratio {v["ratios"][s]:.4f}, rank {v["ranks"][s]:.1f} '
+                f'of {n + 1} (worst {n + 1})' if s in draws else 'recorded')
+        print(f'[episode] {part} {s}: K1 {stats[s]:.6e}, {held}; draws '
+              f'min/median/max {np.min(every[s]):.6e}/'
+              f'{np.median(every[s]):.6e}/{np.max(every[s]):.6e}')
+    return v
 
 
 def phase_episode():
     """K1 over the whole episode of each leg of EPISODE_FIXTURE, from its
-    JAX resets, each env under its own actions: the end poses and the mean
-    |score difference| held to the gate of EPISODE_FLOOR (the reference's
-    own 1-ulp floor over the same 64 trajectories) with no allowance, each
-    statistic printed with its bound, K1's verdict and the reference
-    draws' 0.1, 0.5 and 0.9 quantiles, and how many of those draws miss
-    the gate the other draws make; then the bisect of episode_bisect on
-    env 0 and on the env where K1 ends furthest from the reference.  A
-    missed statistic or a fault the bisect pins on K1 fails the phase,
-    after every leg has run.  Returns K1's launches per task and each
-    leg's gate_verdicts."""
+    JAX resets, each env under its own actions, held to both parts of
+    EPISODE_FLOOR by `hold`: the end part (the end poses' `dpos` median,
+    p90 and share within 0.05, against 16 XLA draws from resets moved 1
+    ulp; the mean |score difference| recorded) and the step part (one K1
+    step into each of its horizons from the reference's state, against 64
+    XLA steps from that state moved 1 ulp: `step_stats`), each part over
+    all three legs; then the bisect of
+    episode_bisect on env 0 and on the env where K1 ends furthest from the
+    reference.  A failed part or a fault the bisect pins on K1 fails the
+    phase, after every leg has run.  Returns K1's launches per task and
+    each part's verdict."""
     import numpy as np
     import torch
     from magical_tpu_torch.core import physics_kernel
@@ -1382,7 +1470,8 @@ def phase_episode():
         data = {k: f[k] for k in f.files}
     with open(os.path.join(ROOT, EPISODE_FLOOR)) as f:
         floor = json.load(f)
-    launches, verdicts, pinned = {}, {}, []
+    launches, pinned = {}, []
+    stats = {'end': {}, 'step': {}}
     for task in EPISODE_TASKS:
         n_steps = ALL_TASKS[task].ep_len
         acts = torch.as_tensor(data[f'{task}/actions'], device=DEVICE)
@@ -1413,27 +1502,17 @@ def phase_episode():
                   f'{s} {d.max():.2e}/{np.median(d):.2e}' for s, d in (
                       (s, np.linalg.norm(p - data[f'{task}/trace_pos'][
                           trace[s]], axis=-1)) for s, p in seen)))
-        stats, score = end_stats(st, task, data)
+        end, score = end_stats(st, task, data)
+        step = step_stats(data, task,
+                          floor['step']['legs'][task]['horizons'])
+        stats['end'].update({f'{task}/{s}': v for s, v in end.items()})
+        stats['step'].update({f'{task}/{s}': v for s, v in step.items()})
         want = data[f'{task}/score']
-        fl = floor[task]
-        bound = fl['gate']
-        held = gate_verdicts(stats, bound)
-        missed, n = draws_against_the_gate(fl)
         print(f'[episode] {task} B={B}, mb {st.max_blocks}, {n_steps} K1 '
               f'steps in {dt:.3f} s (host clock); end scores above 0: K1 '
               f'{int((score > 0).sum())}, reference {int((want > 0).sum())} '
               f'of {B} (mean {float(score.mean()):.6f}, reference '
-              f'{float(want.mean()):.6f}); the gate: {fl["rule"]}; '
-              f'{missed} of the reference\'s {n} draws miss the gate of the '
-              f'other {n - 1}')
-        for s in EPISODE_STATS:
-            q = np.percentile(fl['draws'][s], [10, 50, 90])
-            print(f'[episode] {task} {s}: K1 {stats[s]:.6e} '
-                  f'{">=" if s.startswith("frac") else "<="} '
-                  f'{bound[s]:.6e} ({"held" if held[s] else "NOT held"}); '
-                  f'the reference\'s {fl["n_draws"]} 1-ulp draws 0.1/0.5/0.9 '
-                  f'quantiles {q[0]:.6e}/{q[1]:.6e}/{q[2]:.6e}')
-        verdicts[task] = held
+              f'{float(want.mean()):.6f})')
         worst = int(np.linalg.norm(st.pos.cpu().numpy()
                                    - data[f'{task}/end/pos'],
                                    axis=-1).max(-1).argmax())
@@ -1441,14 +1520,17 @@ def phase_episode():
             if not episode_bisect(data, task, env,
                                   [p[env] for p in k1_pos]):
                 pinned.append((task, env))
-    print('[episode] K1 held the gate on ' + ', '.join(
-        f'{t} {sum(v.values())} of {len(EPISODE_STATS)}'
-        for t, v in verdicts.items()) + ' statistics; the bisect pins '
-        + (f'K1 on {pinned}' if pinned else 'nothing on K1'))
-    missed = [t for t, v in verdicts.items() if not all(v.values())]
-    if missed or pinned:
-        raise AssertionError(f'episode: K1 missed the reference\'s 1-ulp '
-                             f'gate on {missed}; the bisect pins K1 on '
+    print(f'[episode] the rule: {floor["rule"]}')
+    verdicts = {part: print_hold(part, floor, stats[part])
+                for part in ('end', 'step')}
+    failed = [p for p, v in verdicts.items() if not v['passed']]
+    said = (f'failed the {" and ".join(failed)} part' if failed
+            else 'passed both parts')
+    print(f'[episode] K1 {said} over {", ".join(EPISODE_TASKS)}; the '
+          'bisect pins ' + (f'K1 on {pinned}' if pinned else 'nothing on K1'))
+    if failed or pinned:
+        raise AssertionError(f'episode: K1 failed the {failed} part of the '
+                             f'reference\'s hold; the bisect pins K1 on '
                              f'{pinned}')
     return launches, verdicts
 
@@ -2531,9 +2613,10 @@ def main():
           f'iteration over the mesh {dist_out["gail_s"]:.3f} s ([train] '
           f'{train_gail_s:.3f} s); [sweep] launches {sweep_launches}; '
           f'[train] launches {train_launches}')
-    print('[result] [episode] the reference\'s 1-ulp gate held by K1 on '
-          + ', '.join(f'{t} {sum(v.values())}/{len(v)}'
-                      for t, v in episode.items()) + ' statistics')
+    print('[result] [episode] K1 against the reference\'s hold: '
+          + ', '.join(f'{p} part T {v["T"]:.4f}, draws\' largest '
+                      f'{v["T_draws_max"]:.4f}, level {v["level"]:.4f}'
+                      for p, v in episode.items()))
     print('[result] phase wall times: '
           + ', '.join(f'{k} {v:.1f} s' for k, v in wall.items()))
     print(smi)
