@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from magical_tpu_torch import constants as C
+from magical_tpu_torch import trace
 from magical_tpu_torch.api import spaces
 from magical_tpu_torch.api.names import EnvName
 from magical_tpu_torch.core import physics_kernel, preproc, render_kernel
@@ -104,6 +105,9 @@ class BatchedEnv:
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
         self.static_shapes = self.task.static_block_shapes(self.flags)
+        # {batch: int64 (batch, len(PHASES))}: K1's cycles a phase, counted
+        # while a profiler records (counters)
+        self._phase_clocks = {}
 
     # -- rendering ---------------------------------------------------------
 
@@ -138,31 +142,53 @@ class BatchedEnv:
         `global_batch`, the envs are rows ``[start, start + batch)`` of a
         reset of `global_batch` envs from the same generator, bit for bit
         (a data-parallel rank's share, ``parallel/multihost.py``)."""
-        gen = generator_or_seed
+        with trace.span('magical.reset'):
+            trace.count('resets')
+            return self._reset(generator_or_seed, batch, global_batch, start)
+
+    def _reset(self, gen, batch, global_batch, start):
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator().manual_seed(int(gen))
         if global_batch is not None and (global_batch, start) != (batch, 0):
             gen = randomize.RowSlice(gen, global_batch, start)
         state = self.task.reset_fn(gen, batch, self.flags, self.device)
-        seeds = randomize.randint(gen, 0, 2 ** 31 - 1, (batch, 2))
-        state = state.replace(rng=seeds.to(self.device))
+        seeds = randomize.draw(randomize.randint, self.device, gen, 0,
+                               2 ** 31 - 1, (batch, 2))
+        state = state.replace(rng=seeds)
         if not self.render_enabled:
             return EnvCarry(state=state, frames={}, t=0), {}
-        raw = self._render_fresh(state)
+        with trace.span('magical.reset.render'):
+            raw = self._render_fresh(state)
         if self.preproc.raw:
             return EnvCarry(state=state, frames={}, t=0), raw
-        frames = preproc.init_frames_cf(self.preproc, raw)
-        obs = preproc.observation_cf(self.preproc, frames, 0,
-                                     self.preproc.res)
+        with trace.span('magical.reset.frames'):
+            frames = preproc.init_frames_cf(self.preproc, raw)
+            obs = preproc.observation_cf(self.preproc, frames, 0,
+                                         self.preproc.res)
         return EnvCarry(state=state, frames=frames, t=0), obs
 
     def step(self, carry: EnvCarry, action):
         """One control step of every env: (carry, obs, reward, done,
         info).  On CUDA the physics kernel updates ``carry.state`` in place
-        and the frame rings are written in place."""
+        and the frame rings are written in place.  While a profiler
+        records, the kernel counts its cycles a phase into
+        :meth:`counters`' ``k1_cycles``."""
+        with trace.span('magical.step'):
+            trace.count('steps')
+            return self._step(carry, action)
+
+    def _step(self, carry: EnvCarry, action):
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
         B = action.shape[0]
-        state = physics_kernel.control_step(carry.state, action.contiguous())
+        clock = None
+        if self.device.type == 'cuda' and trace.recording():
+            clock = self._phase_clocks.get(B)
+            if clock is None:
+                clock = self._phase_clocks[B] = torch.zeros(
+                    (B, len(physics_kernel.PHASES)), dtype=torch.int64,
+                    device=self.device)
+        state = physics_kernel.control_step(carry.state, action.contiguous(),
+                                            phase_clock=clock)
         t = carry.t + 1
         # LOCKSTEP INVARIANT: every env in the batch shares one step count
         # (fixed-length episodes, whole-batch resets), so the frame-ring
@@ -179,13 +205,15 @@ class BatchedEnv:
             frames, obs = {}, {}
         elif self.preproc.raw:
             frames = {}
-            obs = self._render_fresh(state)
+            with trace.span('magical.render'):
+                obs = self._render_fresh(state)
         else:
             frames = self._render_into_rings(state, carry.frames, t)
             obs = preproc.observation_cf(self.preproc, frames, t,
                                          self.preproc.res)
-        done = state.t >= self.max_episode_steps
-        score = torch.where(done, self.task.score_fn(state), 0.0)
+        with trace.span('magical.score'):
+            done = state.t >= self.max_episode_steps
+            score = torch.where(done, self.task.score_fn(state), 0.0)
         if self.debug_reward:
             reward = debug_shaped_reward(state)
         else:
@@ -212,6 +240,20 @@ class BatchedEnv:
             scores.append(info['eval_score'])
         return (carry, obs, torch.stack(rews), torch.stack(dones),
                 torch.stack(scores))
+
+    def counters(self) -> dict:
+        """The counts of :mod:`magical_tpu_torch.trace`, made while a
+        ``torch.profiler`` recorded (``resets``, ``steps``,
+        ``reset_syncs``, ``reset_draw_bytes``, over every env of the
+        process), and this env's K1 cycles in each phase of
+        ``physics_kernel.PHASES`` over its recorded steps on the card
+        (``k1_cycles``): read from the card, so it syncs; call it after a
+        run."""
+        cycles = [0] * len(physics_kernel.PHASES)
+        for clock in self._phase_clocks.values():
+            cycles = [a + b for a, b in zip(cycles, clock.sum(0).tolist())]
+        return dict(trace.counts(),
+                    k1_cycles=dict(zip(physics_kernel.PHASES, cycles)))
 
     # -- pickling (reference envs are EzPickle-able) ------------------------
 

@@ -21,7 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
-from magical_tpu_torch import _build
+from magical_tpu_torch import _build, trace
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core import physics
@@ -153,30 +153,31 @@ def control_step(state: EnvState, action: torch.Tensor,
     (B, len(PHASES)) CUDA tensor, gets each env's clock64() cycles in each
     phase of :data:`PHASES` added to it.  On a CPU state it runs the plain
     version, :func:`core.physics.control_step`, which returns a new
-    state."""
-    if state.device.type == 'cpu' and action.device.type == 'cpu':
-        return physics.control_step(state, action)
-    if state.device.type != 'cuda':
-        raise ValueError(f'physics kernel needs a CUDA state, got '
-                         f'{state.device}')
-    check_inputs(state, action)
-    if phase_clock is not None and (
-            phase_clock.device != state.device
-            or phase_clock.dtype != torch.int64
-            or tuple(phase_clock.shape) != (state.batch, len(PHASES))
-            or not phase_clock.is_contiguous()):
-        raise ValueError(f'phase_clock must be a contiguous int64 '
-                         f'{(state.batch, len(PHASES))} tensor on '
-                         f'{state.device}')
-    ftab, itab = _tables(state.max_blocks, state.device)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    entry = f'physics_control_step_mb{state.max_blocks}'
-    rc = getattr(_build.library(), entry)(
-        *kernel_args(state, action, ftab, itab, phase_clock=phase_clock),
-        stream)
-    _build.check(rc, entry)
-    control_step.launches += 1
-    return state
+    state.  Both run in one ``magical.k1`` span (:mod:`trace`)."""
+    with trace.span('magical.k1'):
+        if state.device.type == 'cpu' and action.device.type == 'cpu':
+            return physics.control_step(state, action)
+        if state.device.type != 'cuda':
+            raise ValueError(f'physics kernel needs a CUDA state, got '
+                             f'{state.device}')
+        check_inputs(state, action)
+        if phase_clock is not None and (
+                phase_clock.device != state.device
+                or phase_clock.dtype != torch.int64
+                or tuple(phase_clock.shape) != (state.batch, len(PHASES))
+                or not phase_clock.is_contiguous()):
+            raise ValueError(f'phase_clock must be a contiguous int64 '
+                             f'{(state.batch, len(PHASES))} tensor on '
+                             f'{state.device}')
+        ftab, itab = _tables(state.max_blocks, state.device)
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        entry = f'physics_control_step_mb{state.max_blocks}'
+        rc = getattr(_build.library(), entry)(
+            *kernel_args(state, action, ftab, itab, phase_clock=phase_clock),
+            stream)
+        _build.check(rc, entry)
+        control_step.launches += 1
+        return state
 
 
 control_step.launches = 0

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from magical_tpu_torch import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class PreprocSpec:
@@ -93,7 +95,8 @@ def push_frames_cf(spec: PreprocSpec, bufs: dict, raw_imgs: dict, t: int):
 def observation_cf(spec: PreprocSpec, bufs: dict, t: int, res: int):
     """Assemble the user-facing observation from the rings after the
     step-t frame was written: (B, res, res, 3 * frames) uint8 (LoResCHW4E:
-    (B, 3 * frames, res, res); LoResStack: {view: (B, res, res, 12)})."""
+    (B, 3 * frames, res, res); LoResStack: {view: (B, res, res, 12)}),
+    in one ``magical.obs`` span (:mod:`trace`)."""
     def stacked(v):
         d = spec.depth(v)
         ring = bufs[v]
@@ -102,10 +105,11 @@ def observation_cf(spec: PreprocSpec, bufs: dict, t: int, res: int):
         B = ring.shape[1]
         return torch.stack(frames, 3).reshape(B, res, res, 3 * d)
 
-    if spec.stacked_dict:
-        return {v: stacked(v) for v in spec.views}
-    parts = [stacked(v) for v in spec.views]
-    obs = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
-    if spec.channels_first:
-        obs = obs.permute(0, 3, 1, 2).contiguous()
-    return obs
+    with trace.span('magical.obs'):
+        if spec.stacked_dict:
+            return {v: stacked(v) for v in spec.views}
+        parts = [stacked(v) for v in spec.views]
+        obs = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+        if spec.channels_first:
+            obs = obs.permute(0, 3, 1, 2).contiguous()
+        return obs

@@ -39,7 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
-from magical_tpu_torch import _build
+from magical_tpu_torch import _build, trace
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core import collision, preproc, render
@@ -323,21 +323,24 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 rings: dict, t: int, scene, spec, res: int, static_shapes):
     """Step-`t` frames into their ring slots through `entry`, counted on
-    `wrapper`; on a CPU state, the plain render copied in."""
-    if state.device.type == 'cpu':
-        return preproc.push_frames_cf(spec, rings, render.render_views(
-            state, *scene, res=res, views=spec.views, fidelity=fidelity,
-            static_shapes=static_shapes), t)
-    prog = display_program(*scene, static_shapes, state.device)
-    for view in spec.views:
-        ring = rings[view]
-        depth = spec.depth(view)
-        if ring.dim() != 5 or ring.shape[0] != depth:
-            raise ValueError(f'{view} ring has shape {tuple(ring.shape)}, '
-                             f'want ({depth}, B, {res}, {res}, 3)')
-        _launch_scene(entry, prog, state, ring[t % depth], view, res)
-        wrapper.launches += 1
-    return rings
+    `wrapper`; on a CPU state, the plain render copied in.  Either in one
+    ``magical.render`` span (:mod:`trace`)."""
+    with trace.span('magical.render'):
+        if state.device.type == 'cpu':
+            return preproc.push_frames_cf(spec, rings, render.render_views(
+                state, *scene, res=res, views=spec.views, fidelity=fidelity,
+                static_shapes=static_shapes), t)
+        prog = display_program(*scene, static_shapes, state.device)
+        for view in spec.views:
+            ring = rings[view]
+            depth = spec.depth(view)
+            if ring.dim() != 5 or ring.shape[0] != depth:
+                raise ValueError(f'{view} ring has shape '
+                                 f'{tuple(ring.shape)}, want ({depth}, B, '
+                                 f'{res}, {res}, 3)')
+            _launch_scene(entry, prog, state, ring[t % depth], view, res)
+            wrapper.launches += 1
+        return rings
 
 
 def render_views_lo(state: EnvState, max_blocks: int, max_goals: int,

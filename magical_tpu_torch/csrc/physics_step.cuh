@@ -961,14 +961,15 @@ struct WarpEnv {
   }
 };
 
-// Cycles of the phase just ended, added to the env's count of phase `ph`
-// (only on the card, and only where the caller asked for them).
+// Cycles of the phase just ended, added to the step's count of phase `ph`
+// in registers (only on the card, and only where the caller asked for
+// them); lane 0 adds the counts to the env's row once, at the step's end.
 #ifdef __CUDA_ARCH__
 #define PHASE_CLOCK(ph)                                         \
   do {                                                          \
     if (clk) {                                                  \
       const long long now = clock64();                          \
-      if (lane == 0) clk[ph] += now - t_last;                   \
+      cyc[ph] += now - t_last;                                  \
       t_last = now;                                             \
     }                                                           \
   } while (0)
@@ -993,6 +994,7 @@ __host__ __device__ void control_step_warp(const Args& a, int b,
                                  : nullptr;
 #ifdef __CUDA_ARCH__
   long long t_last = clock64();
+  long long cyc[N_PHASES] = {};
 #endif
   (void)clk;
 
@@ -1112,6 +1114,12 @@ __host__ __device__ void control_step_warp(const Args& a, int b,
     if (lane == 0) a.t[b] = a.t[b] + 1;
   });
   PHASE_CLOCK(PH_OTHER);
+#ifdef __CUDA_ARCH__
+  if (clk && lane == 0) {
+#pragma unroll
+    for (int p = 0; p < N_PHASES; ++p) clk[p] += cyc[p];
+  }
+#endif
 }
 
 }  // namespace magical

@@ -23,6 +23,7 @@ import torch
 
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
+from magical_tpu_torch import trace
 from magical_tpu_torch.core.state import (EnvState, N_ROBOT_BODIES, f32,
                                           place_robot)
 from magical_tpu_torch.tasks import randomize as R
@@ -129,8 +130,8 @@ class Draws:
 
     def uniform(self, name: str, shape=()):
         """Uniforms in [0, 1), f32."""
-        return R.rand(self.generator, (self.batch,) + tuple(shape)).to(
-            self.device)
+        return R.draw(R.rand, self.device, self.generator,
+                      (self.batch,) + tuple(shape))
 
     def randint(self, name: str, low: int, high, shape=()):
         """Integers in [low, high), i32; `high` is an int or a per-env
@@ -140,9 +141,8 @@ class Draws:
             span = (high - low).to(torch.float32).reshape(
                 (-1,) + (1,) * len(shape))
             return (low + torch.floor(u * span)).to(torch.int32)
-        return R.randint(self.generator, low, high,
-                         (self.batch,) + tuple(shape)).to(self.device,
-                                                          torch.int32)
+        return R.draw(R.randint, self.device, self.generator, low, high,
+                      (self.batch,) + tuple(shape), dtype=torch.int32)
 
     def choice(self, name: str, values, shape=()):
         """rng.choice over a static tuple of integer codes: the draw is the
@@ -204,12 +204,14 @@ def place(d: Draws, name: str, geom, pos, angle, stack: 'Stack', mask=None,
     """Place one entity per env against the stack's rows (all of them, or
     those `mask` keeps), from the proposals of draw `name`:
     :func:`randomize.place_from_proposals` on ``name/pos`` (B, N_TRIES, 2)
-    and ``name/ang`` (B, N_TRIES).  Returns (pos, angle, ok)."""
-    u_pos = d.uniform(f'{name}/pos', (R.N_TRIES, 2))
-    u_ang = d.uniform(f'{name}/ang', (R.N_TRIES,))
-    return R.place_from_proposals(
-        u_pos, u_ang, geom, pos, angle, stack.placed(),
-        stack.mask if mask is None else mask, **kw)
+    and ``name/ang`` (B, N_TRIES), in one ``magical.reset.place`` span.
+    Returns (pos, angle, ok)."""
+    with trace.span('magical.reset.place'):
+        u_pos = d.uniform(f'{name}/pos', (R.N_TRIES, 2))
+        u_ang = d.uniform(f'{name}/ang', (R.N_TRIES,))
+        return R.place_from_proposals(
+            u_pos, u_ang, geom, pos, angle, stack.placed(),
+            stack.mask if mask is None else mask, **kw)
 
 
 def sample_phys(generator: torch.Generator, batch: int, flags: Flags,
@@ -219,13 +221,13 @@ def sample_phys(generator: torch.Generator, batch: int, flags: Flags,
     hi = f32(C.PHYS_VAR_HI, device)
     if not flags.dynamics:
         return f32(C.PHYS_VAR_DEFAULTS, device).repeat(batch, 1)
-    u = R.rand(generator, (batch, C.N_PHYS_VARS)).to(device)
+    u = R.draw(R.rand, device, generator, (batch, C.N_PHYS_VARS))
     return lo + u * (hi - lo)
 
 
 def choice(generator: torch.Generator, values, batch: int, device):
     """rng.choice over a static tuple of integer codes, per env: (B,)."""
-    idx = R.randint(generator, 0, len(values), (batch,)).to(device)
+    idx = R.draw(R.randint, device, generator, 0, len(values), (batch,))
     return torch.as_tensor(np.asarray(values, np.int32), device=device)[idx]
 
 

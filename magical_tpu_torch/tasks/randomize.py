@@ -19,8 +19,9 @@ uniforms from a ``torch.Generator`` and :func:`place_from_proposals` turns
 given uniforms into poses, so that a test can feed the JAX package's
 uniforms to the port.
 
-Every draw of a reset goes through :func:`rand` or :func:`randint`, which
-take a ``torch.Generator`` or a :class:`RowSlice` of one: the rows
+Every draw of a reset goes through :func:`draw`, which draws with
+:func:`rand` or :func:`randint` and copies the draw to the reset's device.
+Both take a ``torch.Generator`` or a :class:`RowSlice` of one: the rows
 ``[start, start + batch)`` of the draws a reset of the whole global batch
 makes, so that a data-parallel rank's envs are bit for bit those rows of a
 one-process reset.
@@ -36,6 +37,7 @@ import torch
 
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
+from magical_tpu_torch import trace
 from magical_tpu_torch.core import collision as col
 from magical_tpu_torch.core.state import f32
 
@@ -90,6 +92,17 @@ def randint(generator, low: int, high: int, shape, device=None):
     """Integers in [low, high) (int64) of `shape`, drawn as :func:`rand`
     draws."""
     return _draw(torch.randint, generator, shape, device, low, high)
+
+
+def draw(fn, device, *args, dtype=None):
+    """A reset's draw: ``fn(*args)`` (:func:`rand` or :func:`randint`) on
+    the generator's device, copied to `device` (as `dtype`, where given).
+    The draw and its copy make one ``magical.reset.draw`` span, and the
+    bytes drawn count as ``reset_draw_bytes`` (:mod:`trace`)."""
+    with trace.span('magical.reset.draw'):
+        x = fn(*args)
+        trace.count('reset_draw_bytes', x.numel() * x.element_size())
+        return x.to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +205,14 @@ def _sat_overlap(va, nva, ra, vb, nvb, rb, need=(True, True, True, True)):
                        torch.where(a_circ, ab, torch.where(b_circ, ba, pp)))
 
 
+def _read(x):
+    """``x.tolist()``, a device-to-host read: one ``magical.reset.sync``
+    span, counted as one of ``reset_syncs`` (:mod:`trace`)."""
+    with trace.span('magical.reset.sync'):
+        trace.count('reset_syncs')
+        return x.tolist()
+
+
 def _entity_overlap(ent_a, ent_b):
     """Any-pair overlap between entities `ent_a` and `ent_b`, world-frame
     (verts (..., KSUB, NV, 2), radius, nv, active (..., KSUB)) tuples with
@@ -207,11 +228,11 @@ def _entity_overlap(ent_a, ent_b):
     def kinds(nv, act):                 # per sub-shape slot: (circle, poly)
         c = ((nv == 1) & act).reshape(-1, KSUB).any(0)
         p = ((nv != 1) & act).reshape(-1, KSUB).any(0)
-        return list(zip(c.tolist(), p.tolist()))
+        return list(zip(_read(c), _read(p)))
 
     ka, kb = kinds(nva, acta), kinds(nvb, actb)
-    nmax = int(torch.maximum(torch.where(acta, nva, 1).max(),
-                             torch.where(actb, nvb, 1).max()))
+    nmax = _read(torch.maximum(torch.where(acta, nva, 1).max(),
+                               torch.where(actb, nvb, 1).max()))
     va, vb = va[..., :nmax, :], vb[..., :nmax, :]
     hit = torch.zeros(acta.shape[:-1], dtype=torch.bool, device=va.device)
     for i in range(KSUB):
@@ -314,23 +335,21 @@ def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
     return props_pos[rows, pick], props_ang[rows, pick], any_ok
 
 
-def _uniform(generator: torch.Generator, shape, device):
-    return rand(generator, shape).to(device)
-
-
 def place_entity(generator: torch.Generator, ent_geom, cur_pos, cur_angle,
                  placed, placed_mask, rand_pos=True, rand_rot=True,
                  pos_linf_limit=None, rot_limit=None, n_tries=N_TRIES):
     """Sample a non-colliding pose per env: draws `n_tries` proposals from
-    `generator` and places with :func:`place_from_proposals`."""
+    `generator` and places with :func:`place_from_proposals`, in one
+    ``magical.reset.place`` span."""
     B, dev = cur_pos.shape[0], cur_pos.device
-    u_pos = _uniform(generator, (B, n_tries, 2), dev)
-    u_ang = _uniform(generator, (B, n_tries), dev)
-    return place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle,
-                                placed, placed_mask, rand_pos=rand_pos,
-                                rand_rot=rand_rot,
-                                pos_linf_limit=pos_linf_limit,
-                                rot_limit=rot_limit)
+    with trace.span('magical.reset.place'):
+        u_pos = draw(rand, dev, generator, (B, n_tries, 2))
+        u_ang = draw(rand, dev, generator, (B, n_tries))
+        return place_from_proposals(u_pos, u_ang, ent_geom, cur_pos,
+                                    cur_angle, placed, placed_mask,
+                                    rand_pos=rand_pos, rand_rot=rand_rot,
+                                    pos_linf_limit=pos_linf_limit,
+                                    rot_limit=rot_limit)
 
 
 def hw_from_uniform(u, min_side, max_side, current_hw=None, linf_bound=None):
@@ -353,5 +372,5 @@ def randomise_hw(generator: torch.Generator, batch: int, min_side, max_side,
                  device, current_hw=None, linf_bound=None):
     """Uniform goal height/width randomisation, per env: draws from
     `generator` and applies :func:`hw_from_uniform`."""
-    return hw_from_uniform(_uniform(generator, (batch, 2), device),
+    return hw_from_uniform(draw(rand, device, generator, (batch, 2)),
                            min_side, max_side, current_hw, linf_bound)

@@ -6,7 +6,8 @@ of one env ID, optionally with a ``torch.profiler`` trace.  It runs on the
 card unless ``--device cpu`` is given.  ``compile_s`` is the first reset
 and step, the kernels' build included; the steps after it are timed on
 the host's clock around the loop, with the card synchronised before and
-after.
+after.  With ``--trace-dir`` the trace also holds one reset, made before
+the timed loop, and the port's spans (``magical_tpu_torch/trace.py``).
 
     python -m magical_tpu_torch.tools.benchmark --env MoveToCorner-Demo-LoRes4E-v0 \\
         --batch 4096 --steps 30 --json
@@ -57,6 +58,9 @@ def main(argv=None):
         tracer = profile(activities=[ProfilerActivity.CPU]
                          + ([ProfilerActivity.CUDA] if cuda else []))
     with tracer:
+        if args.trace_dir:
+            env.reset(1, args.batch)         # its spans, outside the timing
+            sync()
         t0 = time.perf_counter()
         for _ in range(args.steps):
             carry, obs, *_ = env.step(carry, acts)

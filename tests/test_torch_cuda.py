@@ -5,8 +5,9 @@ count, the renders (2-D tiled too, and the hi render over several tilings)
 at 138 display prims, the slices on CUDA against the same slices on the
 CPU, the lo renders building the display list of every family on the
 card, renders that build no display list on the host, a lo step that
-copies nothing from the host, and the control step giving the same bits
-twice; the data-parallel path on an NCCL group of one rank (the gathered
+copies nothing from the host, the control step giving the same bits
+twice, the port's spans against the benchmark's layer ranges and K1's
+cycles a phase; the data-parallel path on an NCCL group of one rank (the gathered
 rollout scores, a BC step over the mesh) and the CLI on the card.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
@@ -389,6 +390,55 @@ def test_control_step_kernel_gives_the_same_bits_twice(cuda, family):
                                     phase_clock=clock.int())
 
 
+def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):
+    """Under the profiler, with the benchmark's layer ranges around the
+    entry points (portbench/layers), the ops of each of the port's spans
+    are those of the layer range wrapping the same entry point; every op
+    of the observation-and-score range is in the observation's or the
+    score's span; no idle gap is the layer ranges'; K1 counts cycles in
+    every phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magical_tpu_torch import trace
+    from portbench.harness import spec
+    from portbench.harness import trace as layers
+    env = BatchedEnv('ClusterColour-TestAll-LoRes4E-v0', device=cuda)
+    act = torch.arange(256, device=cuda, dtype=torch.int32) % C.N_ACTIONS
+    carry, _ = env.reset(1, 256)
+    env.step(carry, act)
+    torch.cuda.synchronize()
+    trace.clear()
+    with layers.wrap(spec.layers(), env):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with layers.span('portbench.reset'):
+                carry, _ = env.reset(2, 256)
+            for _ in range(3):
+                with layers.span('portbench.step'):
+                    carry, *_ = env.step(carry, act)
+            torch.cuda.synchronize()
+    path = tmp_path / 'trace.json'
+    prof.export_chrome_trace(str(path))
+    t = layers.read(path)
+    for name in ('k1', 'render', 'reset', 'step'):
+        ops = [k for k, op in enumerate(t.ops) if f'layer.{name}' in op.ranges]
+        assert ops, name
+        assert ops == [k for k, op in enumerate(t.ops)
+                       if f'magical.{name}' in op.ranges], name
+        assert t.device_us((f'layer.{name}',)) == t.device_us(
+            (f'magical.{name}',))
+    scored = [op for op in t.ops if 'layer.obs_score' in op.ranges]
+    assert scored and all('magical.obs' in op.ranges
+                          or 'magical.score' in op.ranges for op in scored)
+    assert not {label for label, _ in t.gaps} & {
+        'layer.reset', 'layer.step', 'layer.k1', 'layer.render'}
+    counters = env.counters()
+    trace.clear()
+    assert (counters['resets'], counters['steps']) == (1, 3)
+    assert counters['reset_syncs'] == 10 * 5
+    assert all(v > 0 for v in counters['k1_cycles'].values()), counters
+
+
 # ---------------------------------------------------------------------------
 # The learner on the card against the same work on the CPU.  Float32 with
 # TF32 off (the fixture): the convolutions sum in other orders, so outputs
@@ -521,7 +571,8 @@ def test_disc_update_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize('render', [True, False])
 def test_benchmark_cli_on_the_card(cuda, render, capsys, tmp_path):
     """--json --steps 3, with and without --no-render (which launches no
-    render kernel), the latter also writing a torch.profiler trace."""
+    render kernel), the latter also writing a torch.profiler trace that
+    holds the port's spans of a reset and of the steps."""
     import json
     from magical_tpu_torch.tools import benchmark
     n = render_kernel.render_into_slots.launches
@@ -534,7 +585,10 @@ def test_benchmark_cli_on_the_card(cuda, render, capsys, tmp_path):
     assert out['env_steps_per_s'] > 0 and out['compile_s'] >= 0
     assert (render_kernel.render_into_slots.launches - n == 4) is render
     if not render:
-        assert (tmp_path / 'trace.json').stat().st_size > 0
+        events = json.loads((tmp_path / 'trace.json').read_text())
+        names = {e['name'] for e in events['traceEvents']
+                 if e.get('cat') == 'user_annotation'}
+        assert {'magical.reset', 'magical.step', 'magical.k1'} <= names
 
 
 # ---------------------------------------------------------------------------
