@@ -1167,13 +1167,19 @@ def time_kernel(k, env, carry, tiles=None):
                                 device=DEVICE).manual_seed(SEED + 3))
         ms = cuda_ms(lambda: physics_kernel.control_step(state, act), 10)
         ops, nbytes = k1_work(state)
-        # where a step's cycles go: clock64() per phase, summed over envs
+        # where a step's cycles go: clock64() per phase, summed over envs;
+        # the narrowphase's items, and those its cull left to test in full
         clock = torch.zeros((state.batch, len(physics_kernel.PHASES)),
                             dtype=torch.int64, device=DEVICE)
-        physics_kernel.control_step(state.clone(), act, phase_clock=clock)
+        items = torch.zeros((state.batch, len(physics_kernel.ITEMS)),
+                            dtype=torch.int64, device=DEVICE)
+        physics_kernel.control_step(state.clone(), act, phase_clock=clock,
+                                    item_count=items)
         per_env = clock.double().sum(0) / state.batch
         phases = dict(zip(physics_kernel.PHASES, per_env.tolist()))
+        items = dict(zip(physics_kernel.ITEMS, items.sum(0).tolist()))
         return dict(ms=ms, alone_ms=ms, ops=ops, bytes=nbytes, phases=phases,
+                    items=items,
                     plain_ms=cuda_ms(lambda: physics.control_step(state, act),
                                      1))
     args, ss, spec = env._render_args(), env.static_shapes, env.preproc
@@ -1239,6 +1245,11 @@ def phase_times(cases):
             print(f'[times] {label} cycles an env a step (clock64, lane 0): '
                   f'{total / 1e6:.3f} M; ' + ', '.join(
                       f'{p} {v / total:.1%}' for p, v in cyc.items()))
+            n = t['items']
+            print(f'[times] {label} narrowphase items an env a step: '
+                  f'{n["candidates"] / carry.state.batch:.1f}, '
+                  f'{n["tested"] / max(n["candidates"], 1):.2%} tested in '
+                  f'full')
         if t.get('tiles_ms'):
             print(f'[times] {label} by tiling (kernel alone): ' + ', '.join(
                 f'{r}x{c} {v:.4f} ms' for (r, c), v in t['tiles_ms'].items()))

@@ -44,7 +44,7 @@ _SCENE = [_P] * 13 + [_I] * 7 + [ctypes.c_float] * 9 + [_I] * 2 + [_P]
 # C entry points and their argument types.
 SIGNATURES = {
     'physics_table_layout': [_P],
-    **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P] * 2
+    **{f'physics_control_step_mb{mb}': [_P] * 20 + [_I] * 4 + [_P] * 3
        for mb in (1, 3, 4, 7, 8, 10)},
     'render_program_layout': [_P],
     **{entry: _SCENE for entry in (

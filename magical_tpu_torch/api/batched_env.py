@@ -105,9 +105,10 @@ class BatchedEnv:
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
         self.static_shapes = self.task.static_block_shapes(self.flags)
-        # {batch: int64 (batch, len(PHASES))}: K1's cycles a phase, counted
-        # while a profiler records (counters)
-        self._phase_clocks = {}
+        # {batch: int64 (batch, len(PHASES)) K1's cycles a phase, int64
+        # (batch, len(ITEMS)) its narrowphase's items}, counted while a
+        # profiler records (counters)
+        self._k1_counts = {}
 
     # -- rendering ---------------------------------------------------------
 
@@ -171,8 +172,9 @@ class BatchedEnv:
         """One control step of every env: (carry, obs, reward, done,
         info).  On CUDA the physics kernel updates ``carry.state`` in place
         and the frame rings are written in place.  While a profiler
-        records, the kernel counts its cycles a phase into
-        :meth:`counters`' ``k1_cycles``."""
+        records, the kernel counts its cycles a phase and its
+        narrowphase's items into :meth:`counters`' ``k1_cycles`` and
+        ``k1_items``."""
         with trace.span('magical.step'):
             trace.count('steps')
             return self._step(carry, action)
@@ -180,15 +182,17 @@ class BatchedEnv:
     def _step(self, carry: EnvCarry, action):
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
         B = action.shape[0]
-        clock = None
+        clock = items = None
         if self.device.type == 'cuda' and trace.recording():
-            clock = self._phase_clocks.get(B)
-            if clock is None:
-                clock = self._phase_clocks[B] = torch.zeros(
-                    (B, len(physics_kernel.PHASES)), dtype=torch.int64,
-                    device=self.device)
+            if B not in self._k1_counts:
+                self._k1_counts[B] = tuple(
+                    torch.zeros((B, len(n)), dtype=torch.int64,
+                                device=self.device)
+                    for n in (physics_kernel.PHASES, physics_kernel.ITEMS))
+            clock, items = self._k1_counts[B]
         state = physics_kernel.control_step(carry.state, action.contiguous(),
-                                            phase_clock=clock)
+                                            phase_clock=clock,
+                                            item_count=items)
         t = carry.t + 1
         # LOCKSTEP INVARIANT: every env in the batch shares one step count
         # (fixed-length episodes, whole-batch resets), so the frame-ring
@@ -245,15 +249,20 @@ class BatchedEnv:
         """The counts of :mod:`magical_tpu_torch.trace`, made while a
         ``torch.profiler`` recorded (``resets``, ``steps``,
         ``reset_syncs``, ``reset_draw_bytes``, over every env of the
-        process), and this env's K1 cycles in each phase of
-        ``physics_kernel.PHASES`` over its recorded steps on the card
-        (``k1_cycles``): read from the card, so it syncs; call it after a
-        run."""
-        cycles = [0] * len(physics_kernel.PHASES)
-        for clock in self._phase_clocks.values():
-            cycles = [a + b for a, b in zip(cycles, clock.sum(0).tolist())]
+        process), and, over this env's recorded steps on the card, K1's
+        cycles in each phase of ``physics_kernel.PHASES`` (``k1_cycles``)
+        and its narrowphase's items of ``physics_kernel.ITEMS``
+        (``k1_items``: the items of active slots, and those tested in
+        full, summed over substeps): read from the card, so it syncs; call
+        it after a run."""
+        sums = [[0] * len(physics_kernel.PHASES),
+                [0] * len(physics_kernel.ITEMS)]
+        for counts in self._k1_counts.values():
+            sums = [[a + b for a, b in zip(s, c.sum(0).tolist())]
+                    for s, c in zip(sums, counts)]
         return dict(trace.counts(),
-                    k1_cycles=dict(zip(physics_kernel.PHASES, cycles)))
+                    k1_cycles=dict(zip(physics_kernel.PHASES, sums[0])),
+                    k1_items=dict(zip(physics_kernel.ITEMS, sums[1])))
 
     # -- pickling (reference envs are EzPickle-able) ------------------------
 

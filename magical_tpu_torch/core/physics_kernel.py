@@ -35,8 +35,25 @@ SUPPORTED_MAX_BLOCKS = (1, 3, 4, 7, 8, 10)
 _N_SCALARS = 7
 # The phases whose cycles the kernel counts (csrc/physics_step.cuh PH_*).
 PHASES = ('narrowphase', 'prestep', 'sweep', 'apply', 'joints', 'other')
+# What the kernel counts of its narrowphase's items, summed over substeps:
+# the items of active slots, and those the cull left for the full test.
+ITEMS = ('candidates', 'tested')
 
 _TABLES = {}
+
+
+def slot_bounds(verts, nv, radius):
+    """Each slot's bounding circle in its body's frame, (..., 3) float32:
+    the mean of its `nv` vertices, and the largest distance from there to
+    any of its vertices plus its `radius` (the kernel's cull, Poly::bound;
+    its margin covers the rounding)."""
+    verts = np.asarray(verts, np.float64)
+    nv = np.asarray(nv)
+    real = np.arange(verts.shape[-2]) < nv[..., None]
+    centre = (verts * real[..., None]).sum(-2) / nv[..., None]
+    reach = np.linalg.norm(verts - centre[..., None, :], axis=-1).max(-1)
+    return np.concatenate([centre, (reach + radius)[..., None]],
+                          -1).astype(np.float32)
 
 
 def table_arrays(max_blocks: int):
@@ -65,7 +82,10 @@ def table_arrays(max_blocks: int):
                C.ACTION_FINGER_ANGLE, G.BLOCK_VERTS, G.BLOCK_SUB_RADIUS,
                G.BLOCK_MOMENT, rverts, rrad, inv_m_robot, inv_i_robot,
                G.ROBOT_GEOM['finger_rel_pos'],
-               G.ROBOT_GEOM['finger_rot_limits']]
+               G.ROBOT_GEOM['finger_rot_limits'],
+               slot_bounds(G.BLOCK_VERTS, G.BLOCK_SUB_NV,
+                           G.BLOCK_SUB_RADIUS),
+               slot_bounds(rverts, rnv, rrad)]
     cand_friction_at = sum(np.asarray(p).size for p in f_parts) \
         + len(scalars)
     ftab = np.concatenate([np.asarray(p, np.float32).reshape(-1)
@@ -133,27 +153,40 @@ def check_inputs(state: EnvState, action: torch.Tensor):
 
 def kernel_args(state: EnvState, action: torch.Tensor, ftab, itab,
                 phys_steps: int = C.PHYS_STEPS,
-                iterations: int = C.PHYS_ITER, phase_clock=None):
+                iterations: int = C.PHYS_ITER, phase_clock=None,
+                item_count=None):
     """The C entry point's arguments for this state (pointers as ints),
     but the stream."""
     ptrs = [getattr(state, name).data_ptr()
             for name, _, _ in _fields(state.max_blocks)]
     return ptrs + [action.data_ptr(), ftab.data_ptr(), itab.data_ptr(),
-                   state.batch, state.max_blocks, phys_steps, iterations,
-                   None if phase_clock is None else phase_clock.data_ptr()]
+                   state.batch, state.max_blocks, phys_steps, iterations] + [
+        None if x is None else x.data_ptr() for x in (phase_clock,
+                                                      item_count)]
+
+
+def _check_counter(name, x, state, width):
+    if x is not None and (x.device != state.device
+                          or x.dtype != torch.int64
+                          or tuple(x.shape) != (state.batch, width)
+                          or not x.is_contiguous()):
+        raise ValueError(f'{name} must be a contiguous int64 '
+                         f'{(state.batch, width)} tensor on {state.device}')
 
 
 def control_step(state: EnvState, action: torch.Tensor,
-                 phase_clock=None) -> EnvState:
+                 phase_clock=None, item_count=None) -> EnvState:
     """One control step for every env.
 
     On a CUDA state this launches the kernel, which updates the state's
     tensors IN PLACE (the returned state is the argument); `action` must
     be an int32 (B,) tensor on the same device.  `phase_clock`, an int64
     (B, len(PHASES)) CUDA tensor, gets each env's clock64() cycles in each
-    phase of :data:`PHASES` added to it.  On a CPU state it runs the plain
-    version, :func:`core.physics.control_step`, which returns a new
-    state.  Both run in one ``magical.k1`` span (:mod:`trace`)."""
+    phase of :data:`PHASES` added to it; `item_count`, an int64 (B,
+    len(ITEMS)) one, each env's narrowphase items of :data:`ITEMS`.  On a
+    CPU state it runs the plain version, :func:`core.physics.control_step`,
+    which returns a new state.  Both run in one ``magical.k1`` span
+    (:mod:`trace`)."""
     with trace.span('magical.k1'):
         if state.device.type == 'cpu' and action.device.type == 'cpu':
             return physics.control_step(state, action)
@@ -161,19 +194,14 @@ def control_step(state: EnvState, action: torch.Tensor,
             raise ValueError(f'physics kernel needs a CUDA state, got '
                              f'{state.device}')
         check_inputs(state, action)
-        if phase_clock is not None and (
-                phase_clock.device != state.device
-                or phase_clock.dtype != torch.int64
-                or tuple(phase_clock.shape) != (state.batch, len(PHASES))
-                or not phase_clock.is_contiguous()):
-            raise ValueError(f'phase_clock must be a contiguous int64 '
-                             f'{(state.batch, len(PHASES))} tensor on '
-                             f'{state.device}')
+        _check_counter('phase_clock', phase_clock, state, len(PHASES))
+        _check_counter('item_count', item_count, state, len(ITEMS))
         ftab, itab = _tables(state.max_blocks, state.device)
         stream = torch.cuda.current_stream(state.device).cuda_stream
         entry = f'physics_control_step_mb{state.max_blocks}'
         rc = getattr(_build.library(), entry)(
-            *kernel_args(state, action, ftab, itab, phase_clock=phase_clock),
+            *kernel_args(state, action, ftab, itab, phase_clock=phase_clock,
+                         item_count=item_count),
             stream)
         _build.check(rc, entry)
         control_step.launches += 1

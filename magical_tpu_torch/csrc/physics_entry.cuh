@@ -13,15 +13,23 @@
 
 namespace magical {
 
-// Envs (warps) a block: as many WarpEnv states as fit the 48 KB of shared
-// memory a block takes without opting in, at most 4 (MB = 1: 4, MB = 10:
-// 1); an SM then holds several blocks.
+// Envs (warps) a block: of the counts up to 4 whose WarpEnv states fit the
+// 48 KB of shared memory a block takes without opting in, the one with
+// which an SM's 228 KB (1 KB of it reserved a block) holds the most envs,
+// the larger count on a tie (MB = 1: 4, MB = 8 and 10: 1); an SM then
+// holds several blocks.
 template <int MB>
 constexpr int envs_per_block() {
-  return sizeof(WarpEnv<MB>) > 48 * 1024 ? 1
-         : 48 * 1024 / sizeof(WarpEnv<MB>) < 4
-             ? (int)(48 * 1024 / sizeof(WarpEnv<MB>))
-             : 4;
+  constexpr size_t env = sizeof(WarpEnv<MB>);
+  int best = 1, most = 0;
+  for (int n = 1; n <= 4 && (n == 1 || n * env <= 48 * 1024); ++n) {
+    const int held = n * (int)(228 * 1024 / (n * env + 1024));
+    if (held >= most) {
+      best = n;
+      most = held;
+    }
+  }
+  return best;
 }
 
 template <int MB>
@@ -42,7 +50,7 @@ int launch_control_step(
     const void* block_active, const void* phys, void* con_id, void* con_jn,
     void* con_jt, void* joint_acc, void* t, const void* action,
     const void* ftab, const void* itab, int B, int mb, int phys_steps,
-    int iterations, void* phase_clock, void* stream) {
+    int iterations, void* phase_clock, void* item_count, void* stream) {
   if (mb != MB) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<float*>(pos);
@@ -69,6 +77,7 @@ int launch_control_step(
   a.phys_steps = phys_steps;
   a.iterations = iterations;
   a.phase_clock = static_cast<long long*>(phase_clock);
+  a.item_count = static_cast<long long*>(item_count);
   if (B <= 0) return 0;
   constexpr int envs = envs_per_block<MB>();
   constexpr size_t smem = envs * sizeof(WarpEnv<MB>);
@@ -94,12 +103,12 @@ int launch_control_step(
       void *con_jn, void *con_jt, void *joint_acc, void *t,                 \
       const void *action, const void *ftab, const void *itab, int B,        \
       int mb, int phys_steps, int iterations, void *phase_clock,           \
-      void *stream
+      void *item_count, void *stream
 #define PHYSICS_PASS                                                         \
   pos, angle, vel, omega, v_bias, w_bias, target_speed, rel_turn_angle,     \
       target_finger_angle, block_shape, block_active, phys, con_id, con_jn, \
       con_jt, joint_acc, t, action, ftab, itab, B, mb, phys_steps,          \
-      iterations, phase_clock, stream
+      iterations, phase_clock, item_count, stream
 
 // The C entry point physics_control_step_mb<MB>; `mb` must equal MB.
 #define PHYSICS_CONTROL_STEP(MB)                                      \

@@ -19,15 +19,17 @@
 // local memory.
 //
 // The design: one warp per env, its state in shared memory (WarpEnv in
-// physics_step.cuh: bodies, sub-shape slots, contacts, caches; ~31 KB at
-// MB = 10, ~8 KB at MB = 1), as many envs a block as fit 48 KB, so 4096
+// physics_step.cuh: bodies, sub-shape slots, contacts, caches; ~30 KB at
+// MB = 10, ~8 KB at MB = 1), 1 to 4 envs a block within 48 KB, so 4096
 // envs are 1,024 to 4,096 blocks.  The lanes share each phase
 // (control_step_warp): the slots; the narrowphase over the candidates of
 // active slots only (a ClusterColour-Demo env has 213 of its 1920
-// sub-shape pairs), listed once per control step, each lane's contacts
-// placed after those of the lanes before it by a prefix count, never an
-// atomic, so the contact list, its MAXC cut and the warm start are the
-// sequential ones; the contact prestep, warm start and Jacobi sweep, a
+// sub-shape pairs), listed once per control step; where that list is
+// longer than a warp, a cull by bounding circles, 32 items a round, packs
+// the few that can touch (~2% on ClusterColour) into one list a warp wide
+// for the full contact tests; each lane's contacts placed after those of
+// the lanes before it by a prefix count, never an atomic, so the contact
+// list, its MAXC cut and the warm start are the sequential ones; the contact prestep, warm start and Jacobi sweep, a
 // contact a lane; the per-body impulse sums, a lane per (side, body), each
 // summing in contact order as the plain version does; the block dampers,
 // a block a lane.  The robot's Gauss-Seidel joints stay on lane 0, in

@@ -31,7 +31,9 @@ constexpr int FT_INV_M_ROBOT = FT_ROBOT_RAD + NROBOT;
 constexpr int FT_INV_I_ROBOT = FT_INV_M_ROBOT + NROBOT;
 constexpr int FT_FINGER_REL = FT_INV_I_ROBOT + NROBOT;
 constexpr int FT_FINGER_LIM = FT_FINGER_REL + 4;
-constexpr int FT_SCALARS = FT_FINGER_LIM + 4;
+constexpr int FT_BLOCK_BOUND = FT_FINGER_LIM + 4;  // (cx, cy, r) a sub-shape
+constexpr int FT_ROBOT_BOUND = FT_BLOCK_BOUND + NSHAPE * KSUB * 3;
+constexpr int FT_SCALARS = FT_ROBOT_BOUND + NROBOT * 3;
 enum {
   SC_DT, SC_BIAS_COEF, SC_SLOP, SC_GEAR_MAX_BIAS, SC_EYE_STIFF,
   SC_EYE_DAMP_DT, SC_SHAPE_MASS, N_SCALARS
@@ -73,6 +75,7 @@ struct Args {
   int phys_steps;
   int iterations;
   long long* phase_clock;  // (B, N_PHASES) cycles a phase, or null
+  long long* item_count;   // (B, 2) items, items tested in full; or null
 };
 
 __host__ __device__ inline float cross2(float ax, float ay, float bx,
@@ -92,7 +95,7 @@ struct Poly {
   float v[NV][2];
   int nv;
   float rad;
-  bool active;
+  float cx, cy, bound;  // a circle around every vertex, widened by rad
 };
 
 struct Edges {
@@ -328,6 +331,33 @@ __host__ __device__ void wall_contacts(const Poly& p, float wnx, float wny,
   c.valid[1] = s2 < 0.0f;
 }
 
+// The broadphase cull's margin: an item is tested in full only where its
+// two slots' bounding circles (Poly::cx, cy, bound) come within CULL_MARGIN
+// of each other, or a slot's circle within CULL_MARGIN of its wall.  Culled
+// items must be ones the tests above would make invalid, in their own
+// arithmetic:
+// - wall_contacts, circle_circle and circle_poly are valid only where the
+//   rounded shapes overlap (a vertex past the wall by less than rad, or a
+//   circle's centre closer than the radii to the other shape), so only
+//   where the circles overlap: any margin >= 0 holds them.
+// - poly_poly is valid only where its separation `sep` (the largest over
+//   both polygons' face normals) is below rA + rB.  Let g be the distance
+//   between the two vertex hulls (the padding repeats a vertex), at closest
+//   points p, q.  If p or q lies inside an edge, that edge's normal gives
+//   sep = g.  At two vertices, the separating direction lies in A's normal
+//   cone at p and in B's negated one at q; the overlap of the two cones is
+//   bounded by face normals, each inside the other polygon's cone, so the
+//   nearer is within theta / 2 of the direction, theta the smaller exterior
+//   angle there, and sep >= g cos(theta / 2).  The circles' gap is at most
+//   g - rA - rB.  So sep < rA + rB needs a gap below
+//   (rA + rB) (1 / cos(theta / 2) - 1): zero where both rad are 0 (every
+//   polygon but the square), and for the square (rad 0.00213, exterior
+//   angle 90 degrees) at most 2 x 0.00213 x 0.414 = 0.0018.
+// - rounding: coordinates below ~2 in float32, a few 1e-7.
+// 0.03 covers that 16 times over and still culls ~98% of ClusterColour's
+// items.
+constexpr float CULL_MARGIN = 0.03f;
+
 // ---------------------------------------------------------------------------
 // One env's control step (core/physics.py), on one warp
 // ---------------------------------------------------------------------------
@@ -407,7 +437,8 @@ struct WarpEnv {
 
   // compacted contacts of the current substep, and the caches
   int nc, nc_next;
-  int cid[MAXC], ia[MAXC], ib[MAXC];
+  int cid[MAXC];
+  unsigned char ia[MAXC], ib[MAXC];  // the two bodies, < NBP
   float cnx[MAXC], cny[MAXC], cu[MAXC], bias[MAXC];
   float r1x[MAXC], r1y[MAXC], r2x[MAXC], r2y[MAXC];
   float nmass[MAXC], tmass[MAXC];
@@ -417,12 +448,14 @@ struct WarpEnv {
   float old_jn[MAXC], old_jt[MAXC];
 
   // narrowphase: world geometry, the candidates of active slots (the
-  // first candidate id of each, in candidate order), a lane's results
+  // first candidate id of each, in candidate order), the ring of those
+  // near enough to test in full, a lane's results
   Poly slots[NS];
   bool sact[NS];                   // slot active (for the whole step)
   int n_items, n_items_next;
   unsigned short items[NITEM];
   int item_on[LANES];
+  unsigned short near[2 * LANES];
   Contact2 stage[LANES];
   int stage_k[LANES];
 
@@ -538,12 +571,14 @@ struct WarpEnv {
     ang[k] = ang[k] + (w[k] + wb[k]) * dt;
   }
 
-  // World geometry of slot s (physics.py slot_geometry + transform_verts).
+  // World geometry of slot s (physics.py slot_geometry + transform_verts),
+  // and its bounding circle.
   __host__ __device__ void build_slot(const Tables& tab, int s) {
     const float* ft = tab.f;
     const int* it = tab.i;
     Poly& p = slots[s];
     float lv[NV][2];
+    const float* bound;              // local centre and radius
     if (s < 5) {
       for (int v = 0; v < NV; ++v) {
         lv[v][0] = ft[FT_ROBOT_VERTS + (s * NV + v) * 2];
@@ -551,6 +586,7 @@ struct WarpEnv {
       }
       p.nv = it[IT_ROBOT_NV + s];
       p.rad = ft[FT_ROBOT_RAD + s];
+      bound = ft + FT_ROBOT_BOUND + s * 3;
     } else {
       int bi = (s - 5) / KSUB, k = (s - 5) % KSUB;
       int tk = shape[bi] * KSUB + k;
@@ -560,25 +596,60 @@ struct WarpEnv {
       }
       p.nv = it[IT_BLOCK_NV + tk];
       p.rad = ft[FT_BLOCK_RAD + tk];
+      bound = ft + FT_BLOCK_BOUND + tk * 3;
     }
-    p.active = sact[s];
     int body = it[IT_SLOT_BODY + s];
     float c = cosf(ang[body]), sn = sinf(ang[body]);
     for (int v = 0; v < NV; ++v) {
       p.v[v][0] = c * lv[v][0] - sn * lv[v][1] + px[body];
       p.v[v][1] = sn * lv[v][0] + c * lv[v][1] + py[body];
     }
+    p.cx = c * bound[0] - sn * bound[1] + px[body];
+    p.cy = sn * bound[0] + c * bound[1] + py[body];
+    p.bound = bound[2];
   }
 
-  // Narrowphase of item j into stage[l]: a slot against a wall half-plane
-  // {x : dot(n, x) >= -1}, or a sub-shape pair.
-  __host__ __device__ void narrow(const Tables& tab, int j, int l) {
+  // Whether item k0 (its first candidate id) can touch (CULL_MARGIN): a
+  // slot's circle against the wall half-plane {x : dot(n, x) >= -1}, or
+  // the circles of a sub-shape pair.
+  __host__ __device__ bool near_item(const Tables& tab, int k0) const {
+    if (k0 < 8 * NS) {
+      const int wi = k0 / 2 / NS;
+      const Poly& p = slots[k0 / 2 % NS];
+      const float nc = wi == 0 ? p.cx : wi == 1 ? -p.cx : wi == 2 ? p.cy
+                                                                  : -p.cy;
+      return nc + 1.0f < p.bound + CULL_MARGIN;
+    }
+    const int i = (k0 - 8 * NS) / 2;
+    const Poly& pa = slots[tab.i[IT_SLOT_BODY + NS + i]];
+    const Poly& pb = slots[tab.i[IT_SLOT_BODY + NS + NP + i]];
+    const float dx = pb.cx - pa.cx, dy = pb.cy - pa.cy;
+    const float r = pa.bound + pb.bound + CULL_MARGIN;
+    return dx * dx + dy * dy < r * r;
+  }
+
+  // The host build's ballot: lane l's item of the chunk from item `base`,
+  // if item_on flags it near, into the ring at `at` after the near items of
+  // lanes < l (place_item's prefix count); returns the chunk's count.
+  __host__ __device__ int place_near(int base, int at, int l) {
+    int total = 0;
+    for (int o = 0; o < LANES; ++o) {
+      if (o < l) at += item_on[o];
+      total += item_on[o];
+    }
+    if (item_on[l]) near[at % (2 * LANES)] = items[base + l];
+    return total;
+  }
+
+  // Narrowphase of item k0 (its first candidate id; none if < 0) into
+  // stage[l]: a slot against a wall half-plane {x : dot(n, x) >= -1}, or a
+  // sub-shape pair.
+  __host__ __device__ void narrow(const Tables& tab, int k0, int l) {
     Contact2& c = stage[l];
-    if (j >= n_items) {
+    if (k0 < 0) {
       c.valid[0] = c.valid[1] = false;
       return;
     }
-    const int k0 = items[j];
     stage_k[l] = k0;
     if (k0 < 8 * NS) {
       const float wn[4][2] = {{1.f, 0.f}, {-1.f, 0.f}, {0.f, 1.f},
@@ -733,7 +804,7 @@ struct WarpEnv {
   __host__ __device__ void apply_sums(int l) {
     const int side = l / (LANES / 2), k = l % (LANES / 2);
     if (k >= NBP) return;
-    const int* on = side == 0 ? ia : ib;
+    const unsigned char* on = side == 0 ? ia : ib;
     const float* rx = side == 0 ? r1x : r2x;
     const float* ry = side == 0 ? r1y : r2y;
     const float im = inv_m[k], ii = inv_i[k];
@@ -979,25 +1050,13 @@ struct WarpEnv {
   } while (0)
 #endif
 
-// Env b's whole control step (10 substeps x 10 solver iterations) on the
-// lanes of one warp, `e` its state in shared memory, `lane` this thread's
-// lane (a host build runs every lane of each phase in turn).  Wherever two
-// lanes' results meet (the contact list, the per-body sums) it keeps the
-// sequential order of operations of core/physics.py.
+// Env b's state into `e` (bodies, blocks, caches, the robot's targets,
+// inverse masses, slot activity) and the narrowphase's item list.
 template <int MB>
-__host__ __device__ void control_step_warp(const Args& a, int b,
-                                           WarpEnv<MB>& e, int lane) {
+__host__ __device__ void load_env(const Args& a, int b, WarpEnv<MB>& e,
+                                  int lane) {
   using E = WarpEnv<MB>;
   const Tables& tab = a.tab;
-  const float dt = tab.f[FT_SCALARS + SC_DT];
-  long long* clk = a.phase_clock ? a.phase_clock + (size_t)b * N_PHASES
-                                 : nullptr;
-#ifdef __CUDA_ARCH__
-  long long t_last = clock64();
-  long long cyc[N_PHASES] = {};
-#endif
-  (void)clk;
-
   WARP_PHASE({
     for (int k = lane; k < E::NB; k += LANES) e.load_body(a, b, k);
     for (int k = lane; k < MB; k += LANES) {
@@ -1032,6 +1091,105 @@ __host__ __device__ void control_step_warp(const Args& a, int b,
     WARP_PHASE(e.place_item(base, lane));
   }
   WARP_PHASE(if (lane == 0) e.n_items = e.n_items_next);
+}
+
+// One round of full contact tests: lane l tests the item at (at + l) of
+// `list` (a ring of 2 LANES, or the item list from its start) if l < n,
+// then the round's contacts join the list after those before them.
+template <int MB>
+__host__ __device__ void full_tests(const Tables& tab, WarpEnv<MB>& e,
+                                    int lane, const unsigned short* list,
+                                    int at, int n) {
+  WARP_PHASE({
+    e.narrow(tab, lane < n ? list[(at + lane) % (2 * LANES)] : -1, lane);
+    if (lane == 0) e.nc = e.nc_next;
+  });
+  WARP_PHASE(e.compact(tab, lane));
+}
+
+// A substep's narrowphase, after integration: the slots and their circles,
+// the caches moved to old_*, then the full tests of the items that can
+// touch, compacted in candidate order.  An item list that fits one round
+// is tested as it is; a longer one is culled 32 items a round (near_item)
+// into the ring `near`, in candidate order, and a round of full tests runs
+// whenever 32 wait, then on the rest.  The contact list is the one a full
+// test of every item gives (no culled item makes a valid contact, see
+// CULL_MARGIN), bit for bit.  Returns the number of items tested in full,
+// the same in every lane.
+template <int MB>
+__host__ __device__ int narrowphase(const Tables& tab, WarpEnv<MB>& e,
+                                   int lane) {
+  using E = WarpEnv<MB>;
+  WARP_PHASE({
+    for (int s = lane; s < E::NS; s += LANES) e.build_slot(tab, s);
+    for (int m = lane; m < E::MAXC; m += LANES) {
+      e.old_id[m] = e.cid[m];
+      e.old_jn[m] = e.jn[m];
+      e.old_jt[m] = e.jt[m];
+    }
+    if (lane == 0) e.nc = e.nc_next = 0;
+  });
+  const int n = e.n_items;
+  int tested = n;
+  if (n <= LANES) {
+    full_tests(tab, e, lane, e.items, 0, n);
+  } else {
+    int head = 0, waiting = 0;        // the ring's untested near items
+    tested = 0;
+    for (int base = 0; base < n; base += LANES) {
+      int found = 0;
+#ifdef __CUDA_ARCH__
+      WARP_PHASE({
+        const int k0 = base + lane < n ? e.items[base + lane] : -1;
+        const bool on = k0 >= 0 && e.near_item(tab, k0);
+        const unsigned m = __ballot_sync(0xffffffffu, on);
+        if (on)
+          e.near[(head + waiting + __popc(m & ((1u << lane) - 1u))) %
+                 (2 * LANES)] = (unsigned short)k0;
+        found = __popc(m);
+      });
+#else
+      WARP_PHASE(e.item_on[lane] = base + lane < n &&
+                                   e.near_item(tab, e.items[base + lane]));
+      WARP_PHASE(found = e.place_near(base, head + waiting, lane));
+#endif
+      waiting += found;
+      tested += found;
+      if (waiting >= LANES) {
+        full_tests(tab, e, lane, e.near, head, LANES);
+        head = (head + LANES) % (2 * LANES);
+        waiting -= LANES;
+      }
+    }
+    if (waiting > 0) full_tests(tab, e, lane, e.near, head, waiting);
+  }
+  WARP_PHASE(if (lane == 0) e.nc = e.nc_next);
+  return tested;
+}
+
+// Env b's whole control step (10 substeps x 10 solver iterations) on the
+// lanes of one warp, `e` its state in shared memory, `lane` this thread's
+// lane (a host build runs every lane of each phase in turn).  Wherever two
+// lanes' results meet (the contact list, the per-body sums) it keeps the
+// sequential order of operations of core/physics.py.
+template <int MB>
+__host__ __device__ void control_step_warp(const Args& a, int b,
+                                           WarpEnv<MB>& e, int lane) {
+  using E = WarpEnv<MB>;
+  const Tables& tab = a.tab;
+  const float dt = tab.f[FT_SCALARS + SC_DT];
+  long long* clk = a.phase_clock ? a.phase_clock + (size_t)b * N_PHASES
+                                 : nullptr;
+#ifdef __CUDA_ARCH__
+  long long t_last = clock64();
+  long long cyc[N_PHASES] = {};
+#endif
+  (void)clk;
+  // the step's items and items tested in full, where the caller counts
+  long long* counts = a.item_count ? a.item_count + (size_t)b * 2 : nullptr;
+  int n_items = 0, n_tested = 0;
+
+  load_env(a, b, e, lane);
   PHASE_CLOCK(PH_OTHER);
 
   for (int sub = 0; sub < a.phys_steps; ++sub) {
@@ -1039,24 +1197,11 @@ __host__ __device__ void control_step_warp(const Args& a, int b,
     WARP_PHASE(for (int k = lane; k < E::NB; k += LANES) e.integrate(dt, k));
     PHASE_CLOCK(PH_OTHER);
 
-    // narrowphase + stable compaction; the caches move to old_*
-    WARP_PHASE({
-      for (int s = lane; s < E::NS; s += LANES) e.build_slot(tab, s);
-      for (int m = lane; m < E::MAXC; m += LANES) {
-        e.old_id[m] = e.cid[m];
-        e.old_jn[m] = e.jn[m];
-        e.old_jt[m] = e.jt[m];
-      }
-      if (lane == 0) e.nc = e.nc_next = 0;
-    });
-    for (int base = 0; base < e.n_items; base += LANES) {
-      WARP_PHASE({
-        e.narrow(tab, base + lane, lane);
-        if (lane == 0) e.nc = e.nc_next;
-      });
-      WARP_PHASE(e.compact(tab, lane));
+    const int tested = narrowphase(tab, e, lane);
+    if (counts) {
+      n_items += e.n_items;
+      n_tested += tested;
     }
-    WARP_PHASE(if (lane == 0) e.nc = e.nc_next);
     PHASE_CLOCK(PH_NARROW);
 
     // contact and joint prestep, warm start
@@ -1120,6 +1265,10 @@ __host__ __device__ void control_step_warp(const Args& a, int b,
     for (int p = 0; p < N_PHASES; ++p) clk[p] += cyc[p];
   }
 #endif
+  if (counts && lane == 0) {
+    counts[0] += n_items;
+    counts[1] += n_tested;
+  }
 }
 
 }  // namespace magical

@@ -91,14 +91,19 @@ extern "C" int physics_table_layout(int* out) {
   return 0;
 }
 
-extern "C" int physics_control_step(
-    void* pos, void* angle, void* vel, void* omega, void* v_bias,
-    void* w_bias, void* target_speed, void* rel_turn_angle,
-    void* target_finger_angle, const void* block_shape,
-    const void* block_active, const void* phys, void* con_id, void* con_jn,
-    void* con_jt, void* joint_acc, void* t, const void* action,
-    const void* ftab, const void* itab, int B, int mb, int phys_steps,
-    int iterations, void* phase_clock, void* stream) {
+#define PHYSICS_ARGS                                                      \
+  void *pos, void *angle, void *vel, void *omega, void *v_bias,          \
+      void *w_bias, void *target_speed, void *rel_turn_angle,            \
+      void *target_finger_angle, const void *block_shape,                \
+      const void *block_active, const void *phys, void *con_id,          \
+      void *con_jn, void *con_jt, void *joint_acc, void *t,              \
+      const void *action, const void *ftab, const void *itab, int B,     \
+      int mb, int phys_steps, int iterations, void *phase_clock,        \
+      void *item_count, void *stream
+
+namespace {
+
+magical::Args physics_args(PHYSICS_ARGS) {
   magical::Args a;
   a.pos = (float*)pos;
   a.angle = (float*)angle;
@@ -124,25 +129,127 @@ extern "C" int physics_control_step(
   a.phys_steps = phys_steps;
   a.iterations = iterations;
   a.phase_clock = nullptr;
+  a.item_count = (long long*)item_count;
+  return a;
+}
+
+// Each env's item list at its state's pose: for every candidate item c
+// (first candidate id 2 c), near[b][c] whether the cull keeps it and
+// valid[b][c] whether its full test makes a valid contact; -1 for an item
+// of an inactive slot.
+template <int MB>
+void item_tests(const magical::Args& a, int* near, int* valid) {
+  using E = magical::WarpEnv<MB>;
+  E* e = new E;
+  for (int b = 0; b < a.B; ++b) {
+    magical::load_env<MB>(a, b, *e, 0);
+    for (int s = 0; s < E::NS; ++s) e->build_slot(a.tab, s);
+    for (int c = 0; c < E::NITEM; ++c)
+      near[(size_t)b * E::NITEM + c] = valid[(size_t)b * E::NITEM + c] = -1;
+    for (int j = 0; j < e->n_items; ++j) {
+      const int k0 = e->items[j];
+      e->narrow(a.tab, k0, 0);
+      const size_t q = (size_t)b * E::NITEM + k0 / 2;
+      near[q] = e->near_item(a.tab, k0) ? 1 : 0;
+      valid[q] = e->stage[0].valid[0] || e->stage[0].valid[1] ? 1 : 0;
+    }
+  }
+  delete e;
+}
+
+// One narrowphase of each env at its state's pose, as the control step runs
+// it (dense = 0) or as a full test of every item in candidate order (dense =
+// 1); its contact list: nc (B,), ids (B, MAXC, 3: candidate, body a, body
+// b; -1 past nc), floats (B, MAXC, 8: normal, both lever arms, bias,
+// friction) and counts (B, 2: items, items tested in full).
+template <int MB>
+void narrowphase_lists(const magical::Args& a, int dense, int* nc, int* ids,
+                       float* floats, long long* counts) {
+  using E = magical::WarpEnv<MB>;
+  using magical::LANES;
+  E* e = new E;
+  for (int b = 0; b < a.B; ++b) {
+    magical::load_env<MB>(a, b, *e, 0);
+    int tested = e->n_items;
+    if (dense) {
+      WARP_PHASE({
+        for (int s = lane; s < E::NS; s += LANES) e->build_slot(a.tab, s);
+        if (lane == 0) e->nc = e->nc_next = 0;
+      });
+      for (int base = 0; base < e->n_items; base += LANES)
+        magical::full_tests<MB>(a.tab, *e, 0, e->items + base, 0,
+                                e->n_items - base);
+      WARP_PHASE(if (lane == 0) e->nc = e->nc_next);
+    } else {
+      tested = magical::narrowphase<MB>(a.tab, *e, 0);
+    }
+    nc[b] = e->nc;
+    counts[2 * b] = e->n_items;
+    counts[2 * b + 1] = tested;
+    for (int m = 0; m < E::MAXC; ++m) {
+      const bool on = m < e->nc;
+      int* id = ids + ((size_t)b * E::MAXC + m) * 3;
+      id[0] = on ? e->cid[m] : -1;
+      id[1] = on ? e->ia[m] : -1;
+      id[2] = on ? e->ib[m] : -1;
+      const float f[8] = {e->cnx[m], e->cny[m], e->r1x[m], e->r1y[m],
+                          e->r2x[m], e->r2y[m], e->bias[m], e->cu[m]};
+      for (int q = 0; q < 8; ++q)
+        floats[((size_t)b * E::MAXC + m) * 8 + q] = on ? f[q] : 0.0f;
+    }
+  }
+  delete e;
+}
+
+}  // namespace
+
+#define PHYSICS_PASS                                                       \
+  pos, angle, vel, omega, v_bias, w_bias, target_speed, rel_turn_angle,   \
+      target_finger_angle, block_shape, block_active, phys, con_id,       \
+      con_jn, con_jt, joint_acc, t, action, ftab, itab, B, mb,            \
+      phys_steps, iterations, phase_clock, item_count, stream
+
+// The block counts the kernel is built for, each running `body` with MB.
+#define MB_SWITCH(body) \
+  switch (mb) {         \
+    MB_CASE(1, body)    \
+    MB_CASE(3, body)    \
+    MB_CASE(4, body)    \
+    MB_CASE(7, body)    \
+    MB_CASE(8, body)    \
+    MB_CASE(10, body)   \
+    default:            \
+      return 1;         \
+  }
+#define MB_CASE(n, body) \
+  case n: {              \
+    constexpr int MB = n; \
+    body;                \
+    return 0;            \
+  }
+
+extern "C" float physics_cull_margin() { return magical::CULL_MARGIN; }
+
+extern "C" int physics_control_step(PHYSICS_ARGS) {
+  const magical::Args a = physics_args(PHYSICS_PASS);
   // the kernel's warps, one env after another, each phase lane by lane
-  switch (mb) {
-#define MB_CASE(n)                                                   \
-  case n: {                                                          \
-    magical::WarpEnv<n>* e = new magical::WarpEnv<n>;               \
-    for (int b = 0; b < B; ++b) magical::control_step_warp<n>(a, b, *e, 0); \
-    delete e;                                                        \
-    return 0;                                                        \
-  }
-    MB_CASE(1)
-    MB_CASE(3)
-    MB_CASE(4)
-    MB_CASE(7)
-    MB_CASE(8)
-    MB_CASE(10)
-#undef MB_CASE
-    default:
-      return 1;
-  }
+  MB_SWITCH({
+    magical::WarpEnv<MB>* e = new magical::WarpEnv<MB>;
+    for (int b = 0; b < B; ++b) magical::control_step_warp<MB>(a, b, *e, 0);
+    delete e;
+  })
+}
+
+extern "C" int physics_item_tests(PHYSICS_ARGS, void* near, void* valid) {
+  const magical::Args a = physics_args(PHYSICS_PASS);
+  MB_SWITCH(item_tests<MB>(a, (int*)near, (int*)valid))
+}
+
+extern "C" int physics_narrowphase(PHYSICS_ARGS, int dense, void* nc,
+                                   void* ids, void* floats, void* counts) {
+  const magical::Args a = physics_args(PHYSICS_PASS);
+  MB_SWITCH(narrowphase_lists<MB>(a, dense, (int*)nc, (int*)ids,
+                                  (float*)floats, (long long*)counts))
 }
 
 namespace {

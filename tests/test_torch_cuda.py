@@ -390,6 +390,41 @@ def test_control_step_kernel_gives_the_same_bits_twice(cuda, family):
                                     phase_clock=clock.int())
 
 
+def test_control_step_kernel_counts_the_items_it_culls(cuda):
+    """K1's narrowphase culls by bounding circles: on ClusterColour-Demo
+    states at mb 10, under a profiler, BatchedEnv.counters() reports 0 <
+    tested < candidates, candidates being each env's items in each of the
+    10 substeps; the count changes no bit of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magical_tpu_torch import trace
+    env = BatchedEnv('ClusterColour-Demo-LoRes4E-v0', device=cuda)
+    act = torch.arange(64, device=cuda, dtype=torch.int32) % C.N_ACTIONS
+    carry, _ = env.reset(3, 64)
+    env.step(carry, act)
+    torch.cuda.synchronize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(2):
+            carry, *_ = env.step(carry, act)
+        torch.cuda.synchronize()
+    items = env.counters()['k1_items']
+    trace.clear()
+    assert 0 < items['tested'] < items['candidates'], items
+    count = torch.zeros((64, len(physics_kernel.ITEMS)), dtype=torch.int64,
+                        device=cuda)
+    st = carry.state
+    one = physics_kernel.control_step(st.clone(), act)
+    two = physics_kernel.control_step(st.clone(), act, item_count=count)
+    torch.cuda.synchronize()
+    for f, _, _ in physics_kernel._fields(st.max_blocks):
+        assert torch.equal(getattr(one, f), getattr(two, f)), f
+    assert bool((count[:, 0] % C.PHYS_STEPS == 0).all())
+    assert bool((count[:, 1] <= count[:, 0]).all())
+    with pytest.raises(ValueError, match='item_count'):
+        physics_kernel.control_step(st.clone(), act, item_count=count[:, :1])
+
+
 def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):
     """Under the profiler, with the benchmark's layer ranges around the
     entry points (portbench/layers), the ops of each of the port's spans

@@ -6,7 +6,9 @@ per-pixel compositing of ``magical_tpu_torch/csrc`` live in
 ``__host__ __device__`` functions (``*.cuh``).  ``kernel_host_shim.cpp``
 loops them over the batch; it is built here with the host C++ compiler,
 with FMA contraction off, and called with the same tables and arguments
-the CUDA wrappers pass.  The kernels on the card are held against the same
+the CUDA wrappers pass.  The control step's narrowphase cull is held
+against a full test of every item, and its margin against an adversarial
+sweep of slot pairs.  The kernels on the card are held against the same
 plain versions by ``chip_smoke.py``.
 """
 
@@ -22,6 +24,7 @@ import torch
 
 from magical_tpu_torch import _build
 from magical_tpu_torch import constants as C
+from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core import physics, physics_kernel, render
 from magical_tpu_torch.core import render_kernel
 from magical_tpu_torch.tasks import ALL_TASKS
@@ -54,8 +57,12 @@ def host_lib(tmp_path_factory):
     sigs['render_prim_bboxes'] = sigs['render_lo_frame'][:-1] + [P] * 2
     sigs['render_set_trig'] = [P] * 3 + [ctypes.c_int]
     sigs['physics_set_lane_order'] = [P]
+    sigs['physics_item_tests'] = sigs['physics_control_step'] + [P] * 2
+    sigs['physics_narrowphase'] = sigs['physics_control_step'] + [
+        ctypes.c_int] + [P] * 4
     for name in ('physics_table_layout', 'physics_control_step',
-                 'physics_set_lane_order',
+                 'physics_set_lane_order', 'physics_item_tests',
+                 'physics_narrowphase',
                  'render_program_layout', 'render_lo_frame',
                  'render_build_display', 'render_hi_frame',
                  'render_lo_tiles2d', 'render_prim_bboxes',
@@ -64,6 +71,7 @@ def host_lib(tmp_path_factory):
         fn.argtypes = sigs[name]
         fn.restype = ctypes.c_int
     lib.render_trig_misses.restype = ctypes.c_long
+    lib.physics_cull_margin.restype = ctypes.c_float
     return lib
 
 
@@ -342,8 +350,8 @@ def test_physics_kernel_arithmetic_at_every_block_count(host_lib, task):
     assert torch.equal(sk.t, sp.t)
     # a block count the kernel is not built for
     assert host_lib.physics_control_step(
-        *physics_kernel.kernel_args(sk, a, ftab, itab)[:-5], B, 2, 1, 1,
-        None, None) != 0
+        *physics_kernel.kernel_args(sk, a, ftab, itab)[:-6], B, 2, 1, 1,
+        None, None, None) != 0
 
 
 @pytest.mark.parametrize('task', ['FixColour', 'ClusterShape'])
@@ -483,3 +491,287 @@ def test_warp_control_step_is_the_same_in_every_lane_order(host_lib, task):
         for f in dataclasses.fields(sk):
             assert torch.equal(getattr(sk, f.name),
                                getattr(runs['forward'], f.name)), (name, f.name)
+
+
+# ---------------------------------------------------------------------------
+# The narrowphase's broadphase cull (csrc/physics_step.cuh near_item,
+# narrowphase): an item is tested in full only where its slots' bounding
+# circles come within CULL_MARGIN.
+# ---------------------------------------------------------------------------
+
+def _tables_for(mb):
+    ftab, itab, _ = physics_kernel.table_arrays(mb)
+    return torch.from_numpy(ftab), torch.from_numpy(itab)
+
+
+def _item_tests(host_lib, st):
+    """(near, valid), each (B, NITEM) int32: whether the cull keeps each
+    item at the state's pose and whether its full test makes a valid
+    contact; -1 for the items of inactive slots."""
+    ftab, itab = _tables_for(st.max_blocks)
+    ns, npair = physics.slot_tables(st.max_blocks)[0].size, \
+        physics.pair_table(st.max_blocks)[0].size
+    near, valid = (torch.empty((st.batch, 4 * ns + npair), dtype=torch.int32)
+                   for _ in range(2))
+    sk = st.clone()
+    a = torch.zeros(st.batch, dtype=torch.int32)
+    assert host_lib.physics_item_tests(
+        *physics_kernel.kernel_args(sk, a, ftab, itab), None,
+        near.data_ptr(), valid.data_ptr()) == 0
+    return near, valid
+
+
+def _narrowphase(host_lib, st, dense):
+    """One narrowphase of every env at its state's pose through the
+    kernel's code (dense=False) or a full test of every item in candidate
+    order (dense=True): nc (B,), ids (B, MAXC, 3), floats (B, MAXC, 8) and
+    counts (B, 2) as physics_narrowphase writes them."""
+    ftab, itab = _tables_for(st.max_blocks)
+    maxc = st.con_id.shape[1]
+    out = (torch.empty(st.batch, dtype=torch.int32),
+           torch.empty((st.batch, maxc, 3), dtype=torch.int32),
+           torch.empty((st.batch, maxc, 8)),
+           torch.empty((st.batch, 2), dtype=torch.int64))
+    sk = st.clone()
+    a = torch.zeros(st.batch, dtype=torch.int32)
+    assert host_lib.physics_narrowphase(
+        *physics_kernel.kernel_args(sk, a, ftab, itab), None, int(dense),
+        *(x.data_ptr() for x in out)) == 0
+    return out
+
+
+# The benchmark's three traffics: whole episodes of held random actions.
+TRAFFIC = [('ClusterColour', 'TestAll'), ('ClusterColour', 'Demo'),
+           ('MoveToCorner', 'Demo')]
+
+
+def _held_states(host_lib, task, variant, B=6, n_steps=48, every=8,
+                 seed=2 ** 31 + 16):
+    """Every `every`-th state of a run of `n_steps` held random actions
+    (the benchmark's, portbench/harness/traffic.py) from a `variant`
+    reset, stepped by the host-built kernel."""
+    from portbench.harness import traffic
+    t = ALL_TASKS[task]
+    ftab, itab = _tables_for(t.max_blocks)
+    st = t.reset_fn(torch.Generator().manual_seed(seed), B,
+                    t.flags_for(variant), 'cpu')
+    acts = traffic.held_actions(seed, n_steps, B, 'cpu')
+    out = []
+    for i in range(n_steps):
+        if i % every == 0:
+            out.append(st)
+        st = _kernel_step(host_lib, st, acts[i], ftab, itab, C.PHYS_STEPS)
+    return out
+
+
+@pytest.mark.parametrize('task,variant', TRAFFIC)
+def test_no_culled_item_makes_a_contact_along_episodes(host_lib, task,
+                                                       variant):
+    """Along held-random-action runs of the benchmark's three traffics, no
+    item the cull drops makes a valid contact in its full test, while
+    items do make contacts; on ClusterColour the cull drops most items."""
+    n_valid = n_culled = n_items = 0
+    for st in _held_states(host_lib, task, variant):
+        near, valid = _item_tests(host_lib, st)
+        assert torch.equal(near < 0, valid < 0)
+        assert not bool(((valid == 1) & (near == 0)).any())
+        n_valid += int((valid == 1).sum())
+        n_culled += int((near == 0).sum())
+        n_items += int((near >= 0).sum())
+    assert n_valid > 0
+    if task == 'ClusterColour':
+        assert n_culled > 0.9 * n_items
+
+
+def _slot_kinds():
+    """Every collision slot kind, (name, body kind, sub-shape, local
+    bounding circle): the robot's body circle and four finger boxes
+    ('robot', slot), then each block shape's active sub-shapes ('block',
+    (shape, k))."""
+    block_b = physics_kernel.slot_bounds(G.BLOCK_VERTS, G.BLOCK_SUB_NV,
+                                         G.BLOCK_SUB_RADIUS)
+    robot_b = physics_kernel.slot_bounds(*physics.robot_slot_geometry())
+    kinds = [('robot', s, tuple(robot_b[s])) for s in range(5)]
+    for t in range(G.N_SHAPE_TYPES):
+        for k in range(physics.KSUB):
+            if G.BLOCK_SUB_ACTIVE[t, k]:
+                kinds.append(('block', (t, k), tuple(block_b[t, k])))
+    return kinds
+
+
+# Circle gaps the sweep puts between two slots (or a slot and its wall):
+# overlapping, touching, the square's worst SAT case (< 0.0018), and just
+# inside and outside the cull's threshold (filled in with the margin).
+SWEEP_GAPS = (-0.01, -0.002, -0.0005, 0.0, 0.0005, 0.001, 0.0015, 0.002)
+N_ANGLES = 64
+
+
+def _rot(theta, v):
+    v = np.asarray(v, np.float64)
+    c, s = np.cos(theta), np.sin(theta)
+    return np.stack([c * v[..., 0] - s * v[..., 1],
+                     s * v[..., 0] + c * v[..., 1]], -1)
+
+
+def _sweep_state(kinds, poses):
+    """A FixColour-sized state (3 blocks) an env a row of `poses`: each
+    row sets the pose (x, y, angle) of the bodies of up to two slot
+    kinds, the first on block 0 or its robot body, the second on block 1
+    or its robot body; the robot stands away from them."""
+    from magical_tpu_torch.core import state as S
+    n = len(poses)
+    st = S.make_initial_state(n, 3, 3, 'cpu')
+    st = S.place_robot(st, torch.full((n, 2), -0.6), torch.zeros(n))
+    slot_body, _ = physics.slot_tables(3)
+    pos, ang = st.pos.clone(), st.angle.clone()
+    shape = st.block_shape.clone()
+    active = st.block_active.clone()
+    for row, parts in enumerate(poses):
+        for j, (kind, xy_theta) in enumerate(zip(kinds, parts)):
+            if kind[0] == 'robot':
+                body = int(slot_body[kind[1]])
+            else:
+                body = 5 + j
+                shape[row, j] = kind[1][0]
+                active[row, j] = True
+            pos[row, body] = torch.tensor(xy_theta[:2], dtype=torch.float32)
+            ang[row, body] = float(xy_theta[2])
+    return st.replace(pos=pos, angle=ang, block_shape=shape,
+                      block_active=active)
+
+
+def _slot_of(kind, j):
+    return kind[1] if kind[0] == 'robot' else 5 + j * physics.KSUB + \
+        kind[1][1]
+
+
+def test_no_culled_item_makes_a_contact_in_a_sweep(host_lib):
+    """Every pair of slot kinds the pair table holds (robot slots against
+    block sub-shapes, block sub-shapes of two blocks) and every slot kind
+    against each wall, at N_ANGLES directions and body angles, at circle
+    gaps from overlap through the square's worst SAT case to just inside
+    and just outside the cull's threshold: no item the cull drops makes a
+    valid contact; the swept items make contacts when the circles overlap
+    and, squares corner to corner, at gaps up to 0.0018; they are kept just
+    inside the threshold and dropped just outside it."""
+    margin = float(host_lib.physics_cull_margin())
+    assert 0.002 < margin < 0.1
+    gaps = SWEEP_GAPS + (margin - 1e-4, margin + 1e-4)
+    kinds = _slot_kinds()
+    # the direction from A to B, and each body's angle from it: every
+    # relative orientation a multiple of 2 pi / N_ANGLES, among them
+    # squares corner to corner (j = 0, 16, 32, 48), SAT's worst case
+    j = np.arange(N_ANGLES)
+    phi = 2 * np.pi * j / N_ANGLES + 0.05
+    theta_a = phi - np.pi / 4 + 2 * np.pi * (7 * j % N_ANGLES) / N_ANGLES
+    theta_b = phi + 3 * np.pi / 4 \
+        + 2 * np.pi * (13 * j % N_ANGLES) / N_ANGLES
+    pa, pb = physics.pair_table(3)
+    ns = 5 + 3 * physics.KSUB
+    pair_item = {(int(a), int(b)): 4 * ns + i
+                 for i, (a, b) in enumerate(zip(pa, pb))}
+    cases = []              # (kinds, poses, swept item, gap)
+    for x, ka in enumerate(kinds):
+        for kb in kinds[x:]:
+            if kb[0] == 'robot':
+                continue
+            pair = (ka, kb)
+            item = pair_item[(_slot_of(ka, 0), _slot_of(kb, 1))]
+            ca = np.array([0.25, 0.2])
+            for g in gaps:
+                cb = ca + (ka[2][2] + kb[2][2] + g) * np.stack(
+                    [np.cos(phi), np.sin(phi)], -1)
+                pos_a = ca - _rot(theta_a, ka[2][:2])
+                pos_b = cb - _rot(theta_b, kb[2][:2])
+                for q in range(N_ANGLES):
+                    cases.append((pair, ((*pos_a[q], theta_a[q]),
+                                         (*pos_b[q], theta_b[q])), item, g))
+        normals = np.array([[1., 0.], [-1., 0.], [0., 1.], [0., -1.]])
+        for wi, n in enumerate(normals):
+            item = wi * ns + _slot_of(ka, 0)
+            for g in gaps:
+                c = (ka[2][2] + g - 1.0) * n + 0.3 * np.sin(phi)[:, None] \
+                    * n[::-1]
+                pos = c - _rot(theta_a, ka[2][:2])
+                for q in range(N_ANGLES):
+                    cases.append(((ka,), ((*pos[q], theta_a[q]),), item, g))
+    by_kinds = {}
+    for case in cases:
+        by_kinds.setdefault(case[0], []).append(case)
+    swept = {g: [] for g in gaps}       # (near, valid) of each swept item
+    n_culled = 0
+    for pair, group in by_kinds.items():
+        st = _sweep_state(pair, [c[1] for c in group])
+        near, valid = _item_tests(host_lib, st)
+        assert not bool(((valid == 1) & (near == 0)).any()), pair
+        n_culled += int((near == 0).sum())
+        for row, (_, _, item, g) in enumerate(group):
+            swept[g].append((int(near[row, item]), int(valid[row, item])))
+    swept = {g: np.array(v) for g, v in swept.items()}
+    assert all((v >= 0).all() for v in swept.values())
+    assert swept[-0.01][:, 1].mean() > 0.2        # overlapping: contacts
+    # squares corner to corner: SAT's separation finds an overlap at a
+    # positive gap, which the margin covers (CULL_MARGIN)
+    assert swept[0.001][:, 1].any() and not swept[0.002][:, 1].any()
+    assert (swept[margin - 1e-4][:, 0] == 1).all()
+    assert (swept[margin + 1e-4][:, 0] == 0).all()
+    assert n_culled > 0
+
+
+@pytest.mark.parametrize('task,variant', TRAFFIC + [
+    ('FixColour', 'TestAll'), ('MatchRegions', 'TestAll')])
+def test_culled_narrowphase_lists_the_dense_contacts(host_lib, task,
+                                                     variant):
+    """After one narrowphase of the host-built warp step (the cull, then
+    the full tests of the near items), the compacted contact list (count,
+    candidate ids, bodies, normals, lever arms, biases, frictions) equals,
+    bit for bit, the list of a full test of every item in candidate order;
+    the counts hold tested <= items, tested >= the items with a valid
+    contact, and tested == items where the list fits one round."""
+    n_long = n_contacts = 0
+    for st in _held_states(host_lib, task, variant):
+        got = _narrowphase(host_lib, st, dense=False)
+        want = _narrowphase(host_lib, st, dense=True)
+        for x, y in zip(got[:3], want[:3]):
+            assert torch.equal(x, y)
+        items, tested = got[3].unbind(1)
+        _, valid = _item_tests(host_lib, st)
+        assert torch.equal(items, (valid >= 0).sum(1).long())
+        assert torch.equal(want[3][:, 1], items)
+        assert bool((tested <= items).all())
+        assert bool((tested >= (valid == 1).sum(1)).all())
+        short = items <= 32
+        assert torch.equal(tested[short], items[short])
+        n_long += int((~short).sum())
+        n_contacts += int(got[0].sum())
+    assert n_contacts > 0
+    if task != 'MoveToCorner':
+        assert n_long > 0
+
+
+@pytest.mark.parametrize('task,variant', TRAFFIC)
+def test_control_step_counts_its_items(host_lib, task, variant):
+    """The host-built control step with item_count: each env's items are
+    its list's length in every substep, the items tested in full at most
+    those and, on ClusterColour, a few percent of them; the state's bits
+    are those of a step without the count."""
+    st = _held_states(host_lib, task, variant, n_steps=9)[-1]
+    ftab, itab = _tables_for(st.max_blocks)
+    a = torch.arange(st.batch, dtype=torch.int32) % C.N_ACTIONS
+    count = torch.zeros((st.batch, len(physics_kernel.ITEMS)),
+                        dtype=torch.int64)
+    sk = st.clone()
+    assert host_lib.physics_control_step(
+        *physics_kernel.kernel_args(sk, a, ftab, itab, item_count=count),
+        None) == 0
+    plain = _kernel_step(host_lib, st, a, ftab, itab, C.PHYS_STEPS)
+    for f in dataclasses.fields(sk):
+        assert torch.equal(getattr(sk, f.name), getattr(plain, f.name))
+    items = _narrowphase(host_lib, st, dense=True)[3][:, 0]
+    candidates, tested = count.unbind(1)
+    assert torch.equal(candidates, C.PHYS_STEPS * items)
+    assert bool((tested <= candidates).all())
+    if task == 'ClusterColour':
+        assert 0 < int(tested.sum()) < 0.1 * int(candidates.sum())
+    else:
+        assert torch.equal(tested, candidates)

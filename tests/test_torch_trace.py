@@ -20,7 +20,8 @@ from magical_tpu_torch.tasks import ALL_TASKS, base
 B = 4
 SEED = 2 ** 31 + 77
 ZEROS = {'resets': 0, 'steps': 0, 'reset_syncs': 0, 'reset_draw_bytes': 0,
-         'k1_cycles': dict.fromkeys(physics_kernel.PHASES, 0)}
+         'k1_cycles': dict.fromkeys(physics_kernel.PHASES, 0),
+         'k1_items': dict.fromkeys(physics_kernel.ITEMS, 0)}
 # each span: the spans one of which must hold every one of its ranges
 # (None: none need)
 PARENTS = {
@@ -119,7 +120,8 @@ def test_a_traced_reset_counts_its_syncs_and_draws(traced):
     assert counters['reset_draw_bytes'] == d.nbytes + seeds
     # 11 placements of 128 proposals (x, y, angle), float32, per env
     assert d.nbytes >= B * 11 * 128 * 3 * 4
-    assert counters['k1_cycles'] == ZEROS['k1_cycles']   # none on the CPU
+    for k in ('k1_cycles', 'k1_items'):        # none on the CPU
+        assert counters[k] == ZEROS[k]
 
 
 def test_a_move_to_corner_demo_reset_draws_only_its_seeds():
