@@ -49,7 +49,9 @@ SIGNATURES = {
     'render_program_layout': [_P],
     **{entry: _SCENE for entry in (
         'render_lo_into_slot', 'render_lo_frame', 'render_lo_tiles2d',
-        'render_hi_into_slot', 'render_hi_frame')},
+        'render_hi_frame')},
+    # K4's step entry also takes its two counters' pointers (or nulls)
+    'render_hi_into_slot': _SCENE[:-1] + [_P] * 3,
 }
 
 _LIB = None

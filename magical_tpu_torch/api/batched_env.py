@@ -47,6 +47,14 @@ from magical_tpu_torch.tasks import ALL_TASKS, randomize
 from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
 
 
+# The kernels' counters of BatchedEnv.counters(), in the order the step
+# passes them: K1's, then K4's.
+COUNTERS = {'k1_cycles': physics_kernel.PHASES,
+            'k1_items': physics_kernel.ITEMS,
+            'k4_cycles': render_kernel.K4_PHASES,
+            'k4_items': render_kernel.K4_ITEMS}
+
+
 @dataclasses.dataclass
 class EnvCarry:
     """Full per-batch carried state: physics state, the frame rings
@@ -105,10 +113,11 @@ class BatchedEnv:
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
         self.static_shapes = self.task.static_block_shapes(self.flags)
-        # {batch: int64 (batch, len(PHASES)) K1's cycles a phase, int64
-        # (batch, len(ITEMS)) its narrowphase's items}, counted while a
-        # profiler records (counters)
-        self._k1_counts = {}
+        # {batch: the int64 counters of K1, (batch, len(PHASES)) cycles a
+        # phase and (batch, len(ITEMS)) its narrowphase's items, then of
+        # K4, (batch, len(K4_PHASES)) cycles and (batch, len(K4_ITEMS))
+        # prims}, counted while a profiler records (counters)
+        self._counts = {}
 
     # -- rendering ---------------------------------------------------------
 
@@ -127,11 +136,15 @@ class BatchedEnv:
     def _render_fresh(self, state: EnvState) -> dict:
         return self.render_views(state, self.preproc.res, self.preproc.views)
 
-    def _render_into_rings(self, state: EnvState, frames: dict, t: int):
-        into = (render_kernel.render_hi_into_slots if self.fidelity == 'hi'
-                else render_kernel.render_into_slots)
-        return into(state, frames, t, *self._render_args(), self.preproc,
-                    res=self.preproc.res, static_shapes=self.static_shapes)
+    def _render_into_rings(self, state: EnvState, frames: dict, t: int,
+                           k4_counts=(None, None)):
+        args = (state, frames, t, *self._render_args(), self.preproc)
+        kwargs = dict(res=self.preproc.res, static_shapes=self.static_shapes)
+        if self.fidelity == 'hi':
+            return render_kernel.render_hi_into_slots(
+                *args, **kwargs, phase_clock=k4_counts[0],
+                item_count=k4_counts[1])
+        return render_kernel.render_into_slots(*args, **kwargs)
 
     # -- the API -----------------------------------------------------------
 
@@ -172,9 +185,10 @@ class BatchedEnv:
         """One control step of every env: (carry, obs, reward, done,
         info).  On CUDA the physics kernel updates ``carry.state`` in place
         and the frame rings are written in place.  While a profiler
-        records, the kernel counts its cycles a phase and its
+        records, the physics kernel counts its cycles a phase and its
         narrowphase's items into :meth:`counters`' ``k1_cycles`` and
-        ``k1_items``."""
+        ``k1_items``, and at hi K4 its cycles a phase and its prims into
+        ``k4_cycles`` and ``k4_items``."""
         with trace.span('magical.step'):
             trace.count('steps')
             return self._step(carry, action)
@@ -182,17 +196,17 @@ class BatchedEnv:
     def _step(self, carry: EnvCarry, action):
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
         B = action.shape[0]
-        clock = items = None
+        counts = (None,) * len(COUNTERS)
         if self.device.type == 'cuda' and trace.recording():
-            if B not in self._k1_counts:
-                self._k1_counts[B] = tuple(
+            if B not in self._counts:
+                self._counts[B] = tuple(
                     torch.zeros((B, len(n)), dtype=torch.int64,
                                 device=self.device)
-                    for n in (physics_kernel.PHASES, physics_kernel.ITEMS))
-            clock, items = self._k1_counts[B]
+                    for n in COUNTERS.values())
+            counts = self._counts[B]
         state = physics_kernel.control_step(carry.state, action.contiguous(),
-                                            phase_clock=clock,
-                                            item_count=items)
+                                            phase_clock=counts[0],
+                                            item_count=counts[1])
         t = carry.t + 1
         # LOCKSTEP INVARIANT: every env in the batch shares one step count
         # (fixed-length episodes, whole-batch resets), so the frame-ring
@@ -212,7 +226,8 @@ class BatchedEnv:
             with trace.span('magical.render'):
                 obs = self._render_fresh(state)
         else:
-            frames = self._render_into_rings(state, carry.frames, t)
+            frames = self._render_into_rings(state, carry.frames, t,
+                                             counts[2:])
             obs = preproc.observation_cf(self.preproc, frames, t,
                                          self.preproc.res)
         with trace.span('magical.score'):
@@ -253,16 +268,18 @@ class BatchedEnv:
         cycles in each phase of ``physics_kernel.PHASES`` (``k1_cycles``)
         and its narrowphase's items of ``physics_kernel.ITEMS``
         (``k1_items``: the items of active slots, and those tested in
-        full, summed over substeps): read from the card, so it syncs; call
-        it after a run."""
-        sums = [[0] * len(physics_kernel.PHASES),
-                [0] * len(physics_kernel.ITEMS)]
-        for counts in self._k1_counts.values():
+        full, summed over substeps), and K4's cycles in each phase of
+        ``render_kernel.K4_PHASES`` (``k4_cycles``) and its prims of
+        ``render_kernel.K4_ITEMS`` (``k4_items``: the active prims from
+        slot 2 up, and those the tile cull kept, summed over blocks; zero
+        at lo): read from the card, so it syncs; call it after a run."""
+        sums = [[0] * len(n) for n in COUNTERS.values()]
+        for counts in self._counts.values():
             sums = [[a + b for a, b in zip(s, c.sum(0).tolist())]
                     for s, c in zip(sums, counts)]
-        return dict(trace.counts(),
-                    k1_cycles=dict(zip(physics_kernel.PHASES, sums[0])),
-                    k1_items=dict(zip(physics_kernel.ITEMS, sums[1])))
+        return dict(trace.counts(), **{
+            key: dict(zip(names, total))
+            for (key, names), total in zip(COUNTERS.items(), sums)})
 
     # -- pickling (reference envs are EzPickle-able) ------------------------
 

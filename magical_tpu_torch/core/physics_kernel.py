@@ -165,7 +165,9 @@ def kernel_args(state: EnvState, action: torch.Tensor, ftab, itab,
                                                       item_count)]
 
 
-def _check_counter(name, x, state, width):
+def check_counter(name, x, state, width):
+    """Raise unless `x` is None or a contiguous int64 (B, `width`) tensor
+    on the state's device: a kernel's counter."""
     if x is not None and (x.device != state.device
                           or x.dtype != torch.int64
                           or tuple(x.shape) != (state.batch, width)
@@ -194,8 +196,8 @@ def control_step(state: EnvState, action: torch.Tensor,
             raise ValueError(f'physics kernel needs a CUDA state, got '
                              f'{state.device}')
         check_inputs(state, action)
-        _check_counter('phase_clock', phase_clock, state, len(PHASES))
-        _check_counter('item_count', item_count, state, len(ITEMS))
+        check_counter('phase_clock', phase_clock, state, len(PHASES))
+        check_counter('item_count', item_count, state, len(ITEMS))
         ftab, itab = _tables(state.max_blocks, state.device)
         stream = torch.cuda.current_stream(state.device).cuda_stream
         entry = f'physics_control_step_mb{state.max_blocks}'

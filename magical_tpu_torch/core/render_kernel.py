@@ -42,7 +42,7 @@ import torch
 from magical_tpu_torch import _build, trace
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
-from magical_tpu_torch.core import collision, preproc, render
+from magical_tpu_torch.core import collision, physics_kernel, preproc, render
 from magical_tpu_torch.core.state import EnvState
 
 MAX_PRIMS = 240         # MAX_PRIMS of csrc/render_lo.cuh
@@ -79,6 +79,13 @@ OPS = ('static', 'goal', 'body_poly', 'body_circle', 'eye', 'pupil',
 # as (rows, cols): the fastest tilings measured (PERF.md).
 LO_TILE = (32, 32)
 HI_TILE = (32, 32)
+# What K4's step launch counts for each env, summed over its blocks, where
+# its caller passes the counters (csrc/render_tiles.cuh HiCounts): clock64()
+# cycles building and culling the prims, and shading the tile; the active
+# prims from slot 2 up (slots 0 and 1, the arena's fill and border, are
+# kept by every block), and those whose box meets the tile's subpixels.
+K4_PHASES = ('build', 'shade')
+K4_ITEMS = ('active', 'kept')
 
 _PROGRAMS = {}
 
@@ -264,11 +271,13 @@ _ENTRIES = {'render_lo_into_slot': (1, LO_TILE),
 
 
 def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
-                  view: str, res: int, tile=None):
+                  view: str, res: int, tile=None, counts=(None, None)):
     """Kernel entry point `entry` on the state itself: the kernel builds
     each env's display list from `prog` (:func:`display_program`) and the
     state's tensors, in tiles of `tile` = (rows, cols) output pixels (the
-    entry's own where None), and writes `out` (B, res, res, 3) uint8."""
+    entry's own where None), and writes `out` (B, res, res, 3) uint8.
+    ``render_hi_into_slot`` also takes `counts`, K4's (phase_clock,
+    item_count) or Nones."""
     grid, own_tile = _ENTRIES[entry]
     B, P = state.batch, prog[0].shape[0]
     if P > MAX_PRIMS:
@@ -294,9 +303,18 @@ def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
     ptrs = [x.data_ptr() for x in fields + list(prog) + [out]]
     ints = [B, P, res, state.n_bodies, state.max_blocks,
             state.goal_xyhw.shape[1]]
+    extra = []
+    if entry == 'render_hi_into_slot':
+        if (counts[0] is None) != (counts[1] is None):
+            raise ValueError('K4 takes both counters or neither')
+        for name, x, n in zip(('phase_clock', 'item_count'), counts,
+                              (K4_PHASES, K4_ITEMS)):
+            physics_kernel.check_counter(name, x, state, len(n))
+        extra = [None if x is None else x.data_ptr() for x in counts]
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = getattr(_build.library(), entry)(
-        *ptrs, *ints, *camera_args(view, grid * res), rows, cols, stream)
+        *ptrs, *ints, *camera_args(view, grid * res), rows, cols, *extra,
+        stream)
     _build.check(rc, entry)
 
 
@@ -321,10 +339,12 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 
 
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
-                rings: dict, t: int, scene, spec, res: int, static_shapes):
-    """Step-`t` frames into their ring slots through `entry`, counted on
-    `wrapper`; on a CPU state, the plain render copied in.  Either in one
-    ``magical.render`` span (:mod:`trace`)."""
+                rings: dict, t: int, scene, spec, res: int, static_shapes,
+                counts=(None, None)):
+    """Step-`t` frames into their ring slots through `entry` (with
+    `counts`, see :func:`_launch_scene`), counted on `wrapper`; on a CPU
+    state, the plain render copied in.  Either in one ``magical.render``
+    span (:mod:`trace`)."""
     with trace.span('magical.render'):
         if state.device.type == 'cpu':
             return preproc.push_frames_cf(spec, rings, render.render_views(
@@ -338,7 +358,8 @@ def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 raise ValueError(f'{view} ring has shape '
                                  f'{tuple(ring.shape)}, want ({depth}, B, '
                                  f'{res}, {res}, 3)')
-            _launch_scene(entry, prog, state, ring[t % depth], view, res)
+            _launch_scene(entry, prog, state, ring[t % depth], view, res,
+                          counts=counts)
             wrapper.launches += 1
         return rings
 
@@ -421,13 +442,18 @@ render_views_hi.launches = 0
 
 def render_hi_into_slots(state: EnvState, rings: dict, t: int,
                          max_blocks: int, max_goals: int, robot_first: bool,
-                         spec, res: int = 96, static_shapes=None):
+                         spec, res: int = 96, static_shapes=None,
+                         phase_clock=None, item_count=None):
     """Render the step-`t` hi frame of every view of `spec` into slot
-    ``t mod depth`` of its ring, IN PLACE (K4); returns `rings`.  On a CPU
-    state it renders with the plain hi render and copies the frames in."""
+    ``t mod depth`` of its ring, IN PLACE (K4); returns `rings`.
+    `phase_clock` and `item_count`, int64 (B, 2) CUDA tensors, both or
+    neither, get each env's counts of :data:`K4_PHASES` and
+    :data:`K4_ITEMS` added, over its blocks and views.  On a CPU state it
+    renders with the plain hi render, copies the frames in and counts
+    nothing."""
     return _into_slots(render_hi_into_slots, 'render_hi_into_slot', 'hi',
                        state, rings, t, (max_blocks, max_goals, robot_first),
-                       spec, res, static_shapes)
+                       spec, res, static_shapes, (phase_clock, item_count))
 
 
 render_hi_into_slots.launches = 0

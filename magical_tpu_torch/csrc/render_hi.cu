@@ -8,7 +8,9 @@
 //   render_hi_frame      a fresh frame (reset frames, raw observations,
 //                        the Gym adapter's render());
 //   render_hi_into_slot  the frame of every step, written into slot
-//                        t mod depth of the view's frame ring.
+//                        t mod depth of the view's frame ring; with
+//                        K4's counters (render_tiles.cuh HiCounts) where
+//                        the caller passes them, nulls otherwise.
 // It computes what the XLA reference magical_tpu/core/render.py
 // render_views(fidelity='hi') computes (:411-417): hard-edge coverage at
 // 4x the output resolution, each subpixel quantised to a uint8 level, then
@@ -44,9 +46,13 @@
 using namespace magical_render;
 
 // K4, the step frame, into the ring slot `out` points at; `res` is the
-// output resolution, the camera floats describe the 4x grid.
-extern "C" int render_hi_into_slot(SCENE_ARGS, void* stream) {
-  return launch_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile, stream);
+// output resolution, the camera floats describe the 4x grid.  `cycles` and
+// `items`, int64 (B, 2) each or both null, get each env's counts added.
+extern "C" int render_hi_into_slot(SCENE_ARGS, void* cycles, void* items,
+                                   void* stream) {
+  return launch_tiles<true>(
+      SCENE_PASS(4 * res), row_tile, col_tile, stream,
+      {static_cast<long long*>(cycles), static_cast<long long*>(items)});
 }
 
 // K4, a fresh frame.

@@ -25,8 +25,12 @@ check that costs a fraction of a microsecond.  The spans:
 :func:`count` adds to the registry below, also only while a profiler
 records: ``resets``, ``steps``, ``reset_syncs`` (device-to-host reads in
 resets) and ``reset_draw_bytes`` (bytes a reset drew on the host for its
-device).  ``BatchedEnv.counters()`` returns it with the env's K1 cycles
-per phase; the kernel wrappers' ``.launches`` count always, apart.
+device).  ``BatchedEnv.counters()`` returns it with the env's kernel
+counters, which its step hands the kernels while a profiler records:
+``k1_cycles`` (K1's cycles per phase), ``k1_items`` (its narrowphase's
+items and those tested in full), ``k4_cycles`` (K4's cycles building and
+culling, and shading) and ``k4_items`` (K4's active prims and those its
+tile cull kept).  The kernel wrappers' ``.launches`` count always, apart.
 """
 
 from __future__ import annotations

@@ -260,9 +260,12 @@ using namespace magical_render;
 // output pixels (ragged at the frame's edge), the prims built from the
 // state whose box meets the tile's samples (slots 0 and 1 always), in
 // display order, with their boxes; then the tile's pixels over them (at
-// hi, the camera on the 4x grid).
+// hi, the camera on the 4x grid).  Where `items` (int64 (B, 2)) is given,
+// each tile adds to its env's row K4's prim counts: the active prims from
+// slot 2 up, and those of them it kept.
 template <bool HI>
-int render_tiles(const SceneArgs& a, int row_tile, int col_tile) {
+int render_tiles(const SceneArgs& a, int row_tile, int col_tile,
+                 long long* items = nullptr) {
   if (a.P > MAX_PRIMS || row_tile <= 0 || col_tile <= 0) return 1;
   static Prim kept[MAX_PRIMS];
   static Box boxes[MAX_PRIMS];
@@ -279,8 +282,13 @@ int render_tiles(const SceneArgs& a, int row_tile, int col_tile) {
           Box box;
           build_prim(a, b, i, p);
           prim_box(p, cam, box);
-          if (i < 2 || (p.active && box_meets(box, sub * r0, sub * rows,
-                                              sub * c0, sub * cols))) {
+          const bool meets = p.active && box_meets(box, sub * r0, sub * rows,
+                                                   sub * c0, sub * cols);
+          if (items && i >= 2) {
+            items[2 * b] += p.active;
+            items[2 * b + 1] += meets;
+          }
+          if (i < 2 || meets) {
             kept[n] = p;
             boxes[n++] = box;
           }
@@ -327,6 +335,14 @@ extern "C" int render_lo_tiles2d(SCENE_ARGS, void* stream) {
 // describing the 4x grid.
 extern "C" int render_hi_frame(SCENE_ARGS, void* stream) {
   return render_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile);
+}
+
+// K4's step entry: the same frame, with its prim counts added to `items`
+// where given.  The host has no clock64(): `cycles` is left as it is.
+extern "C" int render_hi_into_slot(SCENE_ARGS, void* cycles, void* items,
+                                   void* stream) {
+  return render_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile,
+                            static_cast<long long*>(items));
 }
 
 // build_prim's display list of every env, field by field: verts (B, P, NV,

@@ -7,13 +7,16 @@ CPU, the lo renders building the display list of every family on the
 card, renders that build no display list on the host, a lo step that
 copies nothing from the host, the control step giving the same bits
 twice, the port's spans against the benchmark's layer ranges and K1's
-cycles a phase; the data-parallel path on an NCCL group of one rank (the gathered
-rollout scores, a BC step over the mesh) and the CLI on the card.
+cycles a phase, K4's counters against the host build's; the
+data-parallel path on an NCCL group of one rank (the gathered rollout
+scores, a BC step over the mesh) and the CLI on the card.
 
 Marked `cuda`; every test skips without a CUDA card.  On a machine with
 one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
 (chip_smoke.py holds the same kernels at the main path's shapes).
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -23,6 +26,8 @@ from magical_tpu_torch.api.batched_env import BatchedEnv
 from magical_tpu_torch.core import (physics, physics_kernel, preproc, render,
                                     render_kernel)
 from magical_tpu_torch.core.state import make_initial_state
+
+import _kernel_host
 
 pytestmark = pytest.mark.cuda
 
@@ -423,6 +428,100 @@ def test_control_step_kernel_counts_the_items_it_culls(cuda):
     assert bool((count[:, 1] <= count[:, 0]).all())
     with pytest.raises(ValueError, match='item_count'):
         physics_kernel.control_step(st.clone(), act, item_count=count[:, :1])
+
+
+@pytest.fixture(scope='module')
+def host_lib(tmp_path_factory):
+    lib = _kernel_host.build(tmp_path_factory.mktemp('kernel_host'))
+    if lib is None:
+        pytest.skip('no host C++ compiler to build the kernel sources')
+    return lib
+
+
+def _hi_states(cuda, task, batch=64, n_steps=3):
+    """A hi `task`-TestAll BatchedEnv on the card, its state after a
+    reset and `n_steps` steps, and the action it steps with."""
+    env = BatchedEnv(f'{task}-TestAll-LoRes4E-v0', fidelity='hi',
+                     device=cuda)
+    act = torch.arange(batch, device=cuda, dtype=torch.int32) % C.N_ACTIONS
+    carry, _ = env.reset(5, batch)
+    for _ in range(n_steps):
+        carry, *_ = env.step(carry, act)
+    torch.cuda.synchronize()
+    return env, carry, act
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'ClusterColour'])
+def test_hi_render_kernel_counts_the_prims_it_culls(cuda, host_lib, task):
+    """K4's step entry with its counters: the same frame bytes as
+    without them; each env's cycles positive in both phases; its kept
+    prims at most its active ones; and both counts those of the host
+    build of the tile loop on the same states (with the card's cos and
+    sin)."""
+    env, carry, _ = _hi_states(cuda, task)
+    st, spec = carry.state, env.preproc
+    args, ss = env._render_args(), env.static_shapes
+    B = st.batch
+    rings = [{v: torch.zeros((spec.depth(v), B, 96, 96, 3),
+                             dtype=torch.uint8, device=cuda)
+              for v in spec.views} for _ in range(2)]
+    clock, items = (torch.zeros((B, 2), dtype=torch.int64, device=cuda)
+                    for _ in range(2))
+    render_kernel.render_hi_into_slots(st, rings[0], 1, *args, spec,
+                                       static_shapes=ss)
+    render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
+                                       static_shapes=ss, phase_clock=clock,
+                                       item_count=items)
+    torch.cuda.synchronize()
+    for v in spec.views:
+        assert torch.equal(rings[0][v], rings[1][v]), v
+    assert bool((clock > 0).all())
+    active, kept = items.unbind(1)
+    assert bool((0 < kept).all() and (kept <= active).all())
+    with pytest.raises(ValueError, match='both counters'):
+        render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
+                                           static_shapes=ss,
+                                           phase_clock=clock)
+    host = st.replace(**{f.name: getattr(st, f.name).cpu()
+                         for f in dataclasses.fields(st)})
+    prog = render_kernel.program_arrays(*args, ss)
+    want = torch.zeros((B, 2), dtype=torch.int64)
+    for v in spec.views:
+        out = torch.empty((B, 96, 96, 3), dtype=torch.uint8)
+        keep = _kernel_host.torch_trig(host_lib, st)
+        fields, a = _kernel_host.scene_args(host, prog, out, 96, v, 4)
+        assert host_lib.render_hi_into_slot(
+            *a, *render_kernel.HI_TILE, None, want.data_ptr(), None) == 0
+        assert host_lib.render_trig_misses() == 0
+        del keep, fields
+    assert torch.equal(items.cpu(), want)
+
+
+def test_a_traced_hi_step_counts_k4(cuda):
+    """A hi BatchedEnv's steps fill counters()' k4_cycles and k4_items
+    while a profiler records, and leave them at zero otherwise: the active
+    prims are each env's active display prims from slot 2 up, in each of
+    its 9 blocks and each traced step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magical_tpu_torch import trace
+    env, carry, act = _hi_states(cuda, 'MoveToCorner', n_steps=1)
+    zeros = {'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
+             'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0)}
+    assert {k: env.counters()[k] for k in zeros} == zeros
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(2):
+            carry, *_ = env.step(carry, act)
+        torch.cuda.synchronize()
+    counters = env.counters()
+    trace.clear()
+    assert all(n > 0 for n in counters['k4_cycles'].values())
+    disp = render_kernel.kernel_display(carry.state, *env._render_args(),
+                                        env.static_shapes)
+    items = counters['k4_items']
+    assert items['active'] == 2 * 9 * int(disp['active'][:, 2:].sum())
+    assert 0 < items['kept'] < items['active']
 
 
 def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):

@@ -14,64 +14,29 @@ plain versions by ``chip_smoke.py``.
 
 import ctypes
 import dataclasses
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
-from magical_tpu_torch import _build
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
 from magical_tpu_torch.core import physics, physics_kernel, render
 from magical_tpu_torch.core import render_kernel
 from magical_tpu_torch.tasks import ALL_TASKS
 
+import _kernel_host
 from _torch_port import seek_block_actions
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 TASK = ALL_TASKS['MoveToCorner']
 SS = TASK.static_block_shapes(TASK.flags_for('Demo'))
 
 
 @pytest.fixture(scope='module')
 def host_lib(tmp_path_factory):
-    cxx = shutil.which('c++') or shutil.which('g++')
-    if cxx is None:
+    lib = _kernel_host.build(tmp_path_factory.mktemp('kernel_host'))
+    if lib is None:
         pytest.skip('no host C++ compiler to build the kernel sources')
-    out = tmp_path_factory.mktemp('kernel_host') / 'libkernel_host.so'
-    subprocess.run(
-        [cxx, '-O2', '-std=c++17', '-ffp-contract=off', '-shared', '-fPIC',
-         '-I', str(_build.CSRC_DIR), '-o', str(out),
-         os.path.join(HERE, 'kernel_host_shim.cpp')],
-        check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    # the host build's physics_control_step takes every block count, with
-    # the arguments of the kernel's per-block-count entry points
-    sigs = dict(_build.SIGNATURES, physics_control_step=_build.SIGNATURES[
-        'physics_control_step_mb1'])
-    P = ctypes.c_void_p
-    sigs['render_build_display'] = sigs['render_lo_frame'][:-1] + [P] * 5
-    sigs['render_prim_bboxes'] = sigs['render_lo_frame'][:-1] + [P] * 2
-    sigs['render_set_trig'] = [P] * 3 + [ctypes.c_int]
-    sigs['physics_set_lane_order'] = [P]
-    sigs['physics_item_tests'] = sigs['physics_control_step'] + [P] * 2
-    sigs['physics_narrowphase'] = sigs['physics_control_step'] + [
-        ctypes.c_int] + [P] * 4
-    for name in ('physics_table_layout', 'physics_control_step',
-                 'physics_set_lane_order', 'physics_item_tests',
-                 'physics_narrowphase',
-                 'render_program_layout', 'render_lo_frame',
-                 'render_build_display', 'render_hi_frame',
-                 'render_lo_tiles2d', 'render_prim_bboxes',
-                 'render_set_trig'):
-        fn = getattr(lib, name)
-        fn.argtypes = sigs[name]
-        fn.restype = ctypes.c_int
-    lib.render_trig_misses.restype = ctypes.c_long
-    lib.physics_cull_margin.restype = ctypes.c_float
     return lib
 
 
@@ -143,28 +108,8 @@ def test_physics_kernel_arithmetic_matches_plain(host_lib):
     assert n_contact > 0
 
 
-def _torch_trig(host_lib, st):
-    """Hand the host build PyTorch's CPU cos and sin of every angle that
-    build_prim and the camera take: each body's, and each pupil's relative
-    to the robot's."""
-    x = torch.cat([st.angle.reshape(-1), st.angle[:, 3] - st.angle[:, 0],
-                   st.angle[:, 4] - st.angle[:, 0]]).contiguous()
-    c, s = torch.cos(x), torch.sin(x)
-    assert host_lib.render_set_trig(x.data_ptr(), c.data_ptr(),
-                                    s.data_ptr(), x.numel()) == 0
-    return (x, c, s)                 # kept alive while the host reads them
-
-
-def _scene_args(st, prog, out, res, view, grid=1):
-    """The arguments of the render entry points but the tile and the
-    stream, the camera on the grid `grid` times finer than `res`."""
-    fields = [getattr(st, name).contiguous()
-              for name, _ in render_kernel._SCENE_FIELDS]
-    ptrs = [x.data_ptr() for x in fields + [torch.from_numpy(a)
-                                            for a in prog] + [out]]
-    return fields, ptrs + [st.batch, prog[0].shape[0], res, st.n_bodies,
-                           st.max_blocks, st.goal_xyhw.shape[1],
-                           *render_kernel.camera_args(view, grid * res)]
+_torch_trig = _kernel_host.torch_trig
+_scene_args = _kernel_host.scene_args
 
 
 def _scene_frame(host_lib, st, scene, ss, view, res=96,
@@ -313,6 +258,67 @@ def test_hi_render_kernel_at_138_prims_and_384(host_lib, task, B, res, tiles,
         out = _scene_frame(host_lib, st, scene, ss, view, res=res, tile=tile,
                            entry='render_hi_frame')
         assert torch.equal(out, plain), tile
+
+
+def _plain_k4_items(st, scene, ss, view, res=96, tile=render_kernel.HI_TILE,
+                    slack=0.0):
+    """K4's prim counts (render_kernel.K4_ITEMS) of each env, summed over
+    its tiles, from the plain display list and its screen boxes on the 4x
+    grid: the active prims from slot 2 up, and those whose box, grown by
+    `slack` subpixels on every side, meets a tile's subpixel centres."""
+    disp = render_kernel.kernel_display(st, *scene, ss)
+    bb, bounded = render_kernel.prim_screen_bboxes(disp, st, view, 4 * res)
+    whole = torch.tensor([-1e30, 1e30, -1e30, 1e30])
+    u0, u1, w0, w1 = torch.where(bounded[..., None], bb,
+                                 whole)[:, 2:].unbind(-1)
+    active = disp['active'][:, 2:]
+    kept, tiles = 0, 0
+    for r0 in range(0, res, tile[0]):
+        for c0 in range(0, res, tile[1]):
+            rows, cols = min(tile[0], res - r0), min(tile[1], res - c0)
+            meets = ~((u1 + slack < 4 * c0 + 0.5)
+                      | (u0 - slack > 4 * (c0 + cols) - 0.5)
+                      | (w1 + slack < 4 * r0 + 0.5)
+                      | (w0 - slack > 4 * (r0 + rows) - 0.5))
+            kept = kept + (active & meets).sum(1)
+            tiles += 1
+    return active.sum(1) * tiles, kept
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'ClusterColour'])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_hi_render_kernel_counts_the_prims_it_culls(host_lib, task, view):
+    """K4's step entry, built for the host, with its prim counts: each
+    env's active prims from slot 2 up over its tiles, and those whose box
+    meets a tile's subpixels, as a plain count from prim_screen_bboxes
+    gives them (whose boxes the host's agree with to 1e-3 subpixel, so a
+    count is held between the boxes shrunk and grown by that), on
+    TestAll states; the frame is the one without the counts."""
+    st, scene, ss = _family_scene(task, 'TestAll', 7, B=4)
+    prog = render_kernel.program_arrays(*scene, ss)
+    plain = _scene_frame(host_lib, st, scene, ss, view, tile=(32, 32),
+                         entry='render_hi_frame')
+    out = torch.empty_like(plain)
+    items = torch.zeros((st.batch, len(render_kernel.K4_ITEMS)),
+                        dtype=torch.int64)
+    keep = _torch_trig(host_lib, st)
+    fields, args = _scene_args(st, prog, out, 96, view, 4)
+    assert host_lib.render_hi_into_slot(
+        *args, *render_kernel.HI_TILE, None, items.data_ptr(), None) == 0
+    assert host_lib.render_trig_misses() == 0
+    del keep, fields
+    assert torch.equal(out, plain)
+    active, kept = items.unbind(1)
+    want_active, want_kept = _plain_k4_items(st, scene, ss, view)
+    assert torch.equal(active, want_active)
+    _, least = _plain_k4_items(st, scene, ss, view, slack=-1e-3)
+    _, most = _plain_k4_items(st, scene, ss, view, slack=1e-3)
+    assert bool(((least <= kept) & (kept <= most)).all())
+    sure = least == most
+    assert int(sure.sum()) >= st.batch - 1
+    assert torch.equal(kept[sure], want_kept[sure])
+    # the cull keeps fewer than every active prim in every tile, and some
+    assert bool((0 < kept).all() and (kept < active).all())
 
 
 @pytest.mark.parametrize('task', ['FixColour', 'MakeLine', 'FindDupe',

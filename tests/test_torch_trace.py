@@ -14,14 +14,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from magical_tpu_torch import trace
 from magical_tpu_torch.api.batched_env import BatchedEnv
-from magical_tpu_torch.core import physics_kernel
+from magical_tpu_torch.core import physics_kernel, render_kernel
 from magical_tpu_torch.tasks import ALL_TASKS, base
 
 B = 4
 SEED = 2 ** 31 + 77
 ZEROS = {'resets': 0, 'steps': 0, 'reset_syncs': 0, 'reset_draw_bytes': 0,
          'k1_cycles': dict.fromkeys(physics_kernel.PHASES, 0),
-         'k1_items': dict.fromkeys(physics_kernel.ITEMS, 0)}
+         'k1_items': dict.fromkeys(physics_kernel.ITEMS, 0),
+         'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
+         'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0)}
 # each span: the spans one of which must hold every one of its ranges
 # (None: none need)
 PARENTS = {
@@ -120,7 +122,7 @@ def test_a_traced_reset_counts_its_syncs_and_draws(traced):
     assert counters['reset_draw_bytes'] == d.nbytes + seeds
     # 11 placements of 128 proposals (x, y, angle), float32, per env
     assert d.nbytes >= B * 11 * 128 * 3 * 4
-    for k in ('k1_cycles', 'k1_items'):        # none on the CPU
+    for k in ('k1_cycles', 'k1_items', 'k4_cycles', 'k4_items'):  # CPU: none
         assert counters[k] == ZEROS[k]
 
 
