@@ -50,8 +50,8 @@ SIGNATURES = {
     **{entry: _SCENE for entry in (
         'render_lo_into_slot', 'render_lo_frame', 'render_lo_tiles2d',
         'render_hi_frame')},
-    # K4's step entry also takes its two counters' pointers (or nulls)
-    'render_hi_into_slot': _SCENE[:-1] + [_P] * 3,
+    # K4's step entry also takes its three counters' pointers (or nulls)
+    'render_hi_into_slot': _SCENE[:-1] + [_P] * 4,
 }
 
 _LIB = None

@@ -52,7 +52,8 @@ from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
 COUNTERS = {'k1_cycles': physics_kernel.PHASES,
             'k1_items': physics_kernel.ITEMS,
             'k4_cycles': render_kernel.K4_PHASES,
-            'k4_items': render_kernel.K4_ITEMS}
+            'k4_items': render_kernel.K4_ITEMS,
+            'k4_pixels': render_kernel.K4_PIXELS}
 
 
 @dataclasses.dataclass
@@ -115,8 +116,9 @@ class BatchedEnv:
         self.static_shapes = self.task.static_block_shapes(self.flags)
         # {batch: the int64 counters of K1, (batch, len(PHASES)) cycles a
         # phase and (batch, len(ITEMS)) its narrowphase's items, then of
-        # K4, (batch, len(K4_PHASES)) cycles and (batch, len(K4_ITEMS))
-        # prims}, counted while a profiler records (counters)
+        # K4, (batch, len(K4_PHASES)) cycles, (batch, len(K4_ITEMS)) prims
+        # and (batch, len(K4_PIXELS)) pixels}, counted while a profiler
+        # records (counters)
         self._counts = {}
 
     # -- rendering ---------------------------------------------------------
@@ -137,13 +139,13 @@ class BatchedEnv:
         return self.render_views(state, self.preproc.res, self.preproc.views)
 
     def _render_into_rings(self, state: EnvState, frames: dict, t: int,
-                           k4_counts=(None, None)):
+                           k4_counts=(None,) * 3):
         args = (state, frames, t, *self._render_args(), self.preproc)
         kwargs = dict(res=self.preproc.res, static_shapes=self.static_shapes)
         if self.fidelity == 'hi':
             return render_kernel.render_hi_into_slots(
                 *args, **kwargs, phase_clock=k4_counts[0],
-                item_count=k4_counts[1])
+                item_count=k4_counts[1], pixel_count=k4_counts[2])
         return render_kernel.render_into_slots(*args, **kwargs)
 
     # -- the API -----------------------------------------------------------
@@ -187,8 +189,8 @@ class BatchedEnv:
         and the frame rings are written in place.  While a profiler
         records, the physics kernel counts its cycles a phase and its
         narrowphase's items into :meth:`counters`' ``k1_cycles`` and
-        ``k1_items``, and at hi K4 its cycles a phase and its prims into
-        ``k4_cycles`` and ``k4_items``."""
+        ``k1_items``, and at hi K4 its cycles a phase, its prims and its
+        pixels into ``k4_cycles``, ``k4_items`` and ``k4_pixels``."""
         with trace.span('magical.step'):
             trace.count('steps')
             return self._step(carry, action)
@@ -271,8 +273,11 @@ class BatchedEnv:
         full, summed over substeps), and K4's cycles in each phase of
         ``render_kernel.K4_PHASES`` (``k4_cycles``) and its prims of
         ``render_kernel.K4_ITEMS`` (``k4_items``: the active prims from
-        slot 2 up, and those the tile cull kept, summed over blocks; zero
-        at lo): read from the card, so it syncs; call it after a run."""
+        slot 2 up, and those the tile cull kept, summed over blocks) and
+        its pixels of ``render_kernel.K4_PIXELS`` (``k4_pixels``: the
+        frames' pixels, and those shaded per subpixel because a prim's edge
+        crosses them; K4's zero at lo): read from the card, so it syncs;
+        call it after a run."""
         sums = [[0] * len(n) for n in COUNTERS.values()]
         for counts in self._counts.values():
             sums = [[a + b for a, b in zip(s, c.sum(0).tolist())]

@@ -81,11 +81,14 @@ LO_TILE = (32, 32)
 HI_TILE = (32, 32)
 # What K4's step launch counts for each env, summed over its blocks, where
 # its caller passes the counters (csrc/render_tiles.cuh HiCounts): clock64()
-# cycles building and culling the prims, and shading the tile; the active
-# prims from slot 2 up (slots 0 and 1, the arena's fill and border, are
-# kept by every block), and those whose box meets the tile's subpixels.
+# cycles building and culling the prims, and shading the tile (classing
+# its pixels included); the active prims from slot 2 up (slots 0 and 1, the
+# arena's fill and border, are kept by every block), and those whose box
+# meets the tile's subpixels; the tile's pixels, and those a prim's edge
+# leaves undecided by their centre's classes, shaded per subpixel.
 K4_PHASES = ('build', 'shade')
 K4_ITEMS = ('active', 'kept')
+K4_PIXELS = ('pixels', 'undecided')
 
 _PROGRAMS = {}
 
@@ -271,13 +274,13 @@ _ENTRIES = {'render_lo_into_slot': (1, LO_TILE),
 
 
 def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
-                  view: str, res: int, tile=None, counts=(None, None)):
+                  view: str, res: int, tile=None, counts=(None,) * 3):
     """Kernel entry point `entry` on the state itself: the kernel builds
     each env's display list from `prog` (:func:`display_program`) and the
     state's tensors, in tiles of `tile` = (rows, cols) output pixels (the
     entry's own where None), and writes `out` (B, res, res, 3) uint8.
     ``render_hi_into_slot`` also takes `counts`, K4's (phase_clock,
-    item_count) or Nones."""
+    item_count, pixel_count) or Nones."""
     grid, own_tile = _ENTRIES[entry]
     B, P = state.batch, prog[0].shape[0]
     if P > MAX_PRIMS:
@@ -305,10 +308,10 @@ def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
             state.goal_xyhw.shape[1]]
     extra = []
     if entry == 'render_hi_into_slot':
-        if (counts[0] is None) != (counts[1] is None):
-            raise ValueError('K4 takes both counters or neither')
-        for name, x, n in zip(('phase_clock', 'item_count'), counts,
-                              (K4_PHASES, K4_ITEMS)):
+        if len({x is None for x in counts}) > 1:
+            raise ValueError('K4 takes all three counters or none')
+        for name, x, n in zip(('phase_clock', 'item_count', 'pixel_count'),
+                              counts, (K4_PHASES, K4_ITEMS, K4_PIXELS)):
             physics_kernel.check_counter(name, x, state, len(n))
         extra = [None if x is None else x.data_ptr() for x in counts]
     stream = torch.cuda.current_stream(state.device).cuda_stream
@@ -340,7 +343,7 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 rings: dict, t: int, scene, spec, res: int, static_shapes,
-                counts=(None, None)):
+                counts=(None,) * 3):
     """Step-`t` frames into their ring slots through `entry` (with
     `counts`, see :func:`_launch_scene`), counted on `wrapper`; on a CPU
     state, the plain render copied in.  Either in one ``magical.render``
@@ -443,17 +446,19 @@ render_views_hi.launches = 0
 def render_hi_into_slots(state: EnvState, rings: dict, t: int,
                          max_blocks: int, max_goals: int, robot_first: bool,
                          spec, res: int = 96, static_shapes=None,
-                         phase_clock=None, item_count=None):
+                         phase_clock=None, item_count=None,
+                         pixel_count=None):
     """Render the step-`t` hi frame of every view of `spec` into slot
     ``t mod depth`` of its ring, IN PLACE (K4); returns `rings`.
-    `phase_clock` and `item_count`, int64 (B, 2) CUDA tensors, both or
-    neither, get each env's counts of :data:`K4_PHASES` and
-    :data:`K4_ITEMS` added, over its blocks and views.  On a CPU state it
-    renders with the plain hi render, copies the frames in and counts
-    nothing."""
+    `phase_clock`, `item_count` and `pixel_count`, int64 (B, 2) CUDA
+    tensors, all or none, get each env's counts of :data:`K4_PHASES`,
+    :data:`K4_ITEMS` and :data:`K4_PIXELS` added, over its blocks and
+    views.  On a CPU state it renders with the plain hi render, copies the
+    frames in and counts nothing."""
     return _into_slots(render_hi_into_slots, 'render_hi_into_slot', 'hi',
                        state, rings, t, (max_blocks, max_goals, robot_first),
-                       spec, res, static_shapes, (phase_clock, item_count))
+                       spec, res, static_shapes,
+                       (phase_clock, item_count, pixel_count))
 
 
 render_hi_into_slots.launches = 0

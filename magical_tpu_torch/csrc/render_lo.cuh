@@ -513,15 +513,16 @@ __host__ __device__ inline void shade_pixel(const Prim* prims, int n_prims,
   for (int c = 0; c < 3; ++c) rgb[c] = (unsigned char)level_of(img[c]);
 }
 
-// Hi fidelity: output pixel (row, col) is the rounded mean of the uint8
-// levels of its 4x4 subpixels, each composited with hard fills on the
-// camera's 4x grid (`cam` describes that grid: res, scale and line scale
-// at 4x).  A row of four subpixels goes through the prims together, over
-// those whose box (`boxes`, prim_box on the 4x grid) meets the row: a prim
-// has coverage exactly 0 outside its box, and out * (1 - 0) + c * 0 ==
-// out, so the others change nothing.  The levels are integers and their
-// sum is at most 16 * 255, so the float sum is exact in any order, as is
-// the division by 16.
+// Hi fidelity, subpixel by subpixel: output pixel (row, col) is the
+// rounded mean of the uint8 levels of its 4x4 subpixels, each composited
+// with hard fills on the camera's 4x grid (`cam` describes that grid: res,
+// scale and line scale at 4x).  A row of four subpixels goes through the
+// prims together, over those whose box (`boxes`, prim_box on the 4x grid)
+// meets the row: a prim has coverage exactly 0 outside its box, and
+// out * (1 - 0) + c * 0 == out, so the others change nothing.  The levels
+// are integers and their sum is at most 16 * 255, so the float sum is
+// exact in any order, as is the division by 16.  K4 runs the classed path
+// below, which the host build of the tests holds to this byte for byte.
 __host__ __device__ inline void shade_pixel_hi(const Prim* prims,
                                                const Box* boxes, int n_prims,
                                                const Camera& cam, int row,
@@ -548,6 +549,187 @@ __host__ __device__ inline void shade_pixel_hi(const Prim* prims,
   }
   for (int c = 0; c < 3; ++c)
     rgb[c] = (unsigned char)floorf(sum[c] / 16.0f + 0.5f);
+}
+
+// ---------------------------------------------------------------------------
+// Hi fidelity by coverage class: what K4 runs (render_tiles.cuh)
+// ---------------------------------------------------------------------------
+
+// A prim's coverage over the 4x4 subpixels of one output pixel, decided
+// from its SDF at their centre: exactly 0 at all 16 (none), exactly 1 at
+// all 16 (full: a fill only), or anything else (partial).
+constexpr int COVER_NONE = 0;
+constexpr int COVER_FULL = 1;
+constexpr int COVER_PARTIAL = 2;
+
+// Subpixels from a pixel's centre to its farthest subpixel centre,
+// 1.5 sqrt 2 = 2.12132034..., rounded up.
+constexpr float HI_REACH = 2.1213204f;
+
+// The classes' rounding margin, in world units.  The SDF (prim_sdf) is
+// 1-Lipschitz in exact arithmetic: a circle's is its centre distance less
+// the radius, a polygon's the largest of its face distances along unit
+// normals (|n| within 1e-7 of 1 after rounding) less the radius.  So
+// between the centre and a subpixel centre, at most HI_REACH / scale apart
+// in the world (the ego view turns the grid, it does not stretch it), the
+// exact SDF moves by at most that.  What the margin must cover is the
+// float rounding of the two SDFs the classes compare, each computed from a
+// computed point:
+// - the points (pixel_world, pixel_centre_hi): world coordinates below ~4
+//   in magnitude (the ego view's farthest corner from the arena's centre),
+//   a division, a subtraction and, ego, a rotation and a translation:
+//   below 1.5e-6 a coordinate, 2.2e-6 in distance;
+// - prim_sdf: two products, a sum and a difference of terms below ~8
+//   (circle: differences, squares, a root), a few 1e-7 each: below 1.5e-6;
+//   the normals' length, 1e-7 relative on distances below ~6: 6e-7;
+// - an outline's band, (half width - |d|) * scale + 0.5, rounds by 1e-7
+//   relative: below 4e-7 in the world.
+// So the two SDFs are off by at most ~1e-5 in all; 1e-4 (0.019 subpixels
+// at 96², 0.075 at 384²) covers that 10 times over and leaves a prim's
+// class partial only within ~2.2 subpixels of its edge.
+constexpr float HI_CLASS_MARGIN = 1e-4f;
+
+// How far from a pixel's centre, in world units, the classes must hold:
+// HI_REACH subpixels of the camera's 4x grid and the margin.
+__host__ __device__ inline float hi_class_reach(const Camera& cam) {
+  return HI_REACH / cam.scale + HI_CLASS_MARGIN;
+}
+
+// World coordinates of the centre of output pixel (row, col)'s 4x4
+// subpixels, the grid point (4 row + 2, 4 col + 2) of the camera's 4x grid:
+// pixel_world's arithmetic with 2 in place of 0.5.
+__host__ __device__ inline void pixel_centre_hi(const Camera& cam, int row,
+                                                int col, float* x, float* y) {
+  float cx = (float)(4 * col + 2) / cam.scale;
+  if (!cam.ego) {
+    float cy = (float)(4 * row + 2) / cam.scale;
+    *x = cx - cam.half;
+    *y = cam.half - cy;
+    return;
+  }
+  float cy = ((float)cam.res - (float)(4 * row + 2)) / cam.scale;
+  float spx = cx - cam.npx, spy = cy - cam.npy;
+  *x = cam.c * spx - cam.s * spy + cam.rx;
+  *y = cam.s * spx + cam.c * spy + cam.ry;
+}
+
+// The class of prim p over the subpixels within `reach` (hi_class_reach)
+// of world point (x, y), a pixel's centre.  A fill's hard coverage is
+// d < 0 at a subpixel: 0 at all where d > reach at the centre, 1 where
+// d < -reach.  An outline's band alpha is 0 where |d| >= its half width +
+// 0.5 / scale: at all where |d| - reach passes that at the centre; the
+// stipple only multiplies by 0 or 1.  An outline is never full.
+__host__ __device__ inline int prim_class(const Prim& p, const Camera& cam,
+                                          float x, float y, float reach) {
+  const float d = prim_sdf(p, x, y);
+  if (p.kind == KIND_FILL)
+    return d > reach ? COVER_NONE : d < -reach ? COVER_FULL : COVER_PARTIAL;
+  const float band = fmaxf(p.lw * cam.lw_scale, 1.0f) / cam.two_scale +
+                     0.5f / cam.scale;
+  return fabsf(d) - reach >= band ? COVER_NONE : COVER_PARTIAL;
+}
+
+// Output pixel (row, col) of the kept prims (their boxes `boxes` on the 4x
+// grid, n_prims of them in display order), classed at its centre from the
+// top down: returns the index after its topmost full prim (0 where none
+// is full), with `partial` set where a partial prim lies above it.  A
+// prim whose box misses the pixel's subpixels, or that is inactive, is
+// none without an SDF.  A full prim gives img * (1 - 1) + c * 1 == c at
+// every subpixel, so the blend restarts at its colour and the prims below
+// it change nothing; a none prim gives out * (1 - 0) + c * 0 == out.
+__host__ __device__ inline int class_pixel_hi(const Prim* prims,
+                                              const Box* boxes, int n_prims,
+                                              const Camera& cam, int row,
+                                              int col, float reach,
+                                              bool* partial) {
+  float x, y;
+  pixel_centre_hi(cam, row, col, &x, &y);
+  *partial = false;
+  for (int k = n_prims - 1; k >= 0; --k) {
+    const Prim& p = prims[k];
+    if (!p.active || !box_meets(boxes[k], 4 * row, 4, 4 * col, 4)) continue;
+    const int cls = prim_class(p, cam, x, y, reach);
+    if (cls == COVER_FULL) return k + 1;
+    if (cls == COVER_PARTIAL) *partial = true;
+  }
+  return 0;
+}
+
+// The colour a pixel's blend starts from at index `start`: the full prim
+// below it, or the background.
+__host__ __device__ inline const float* start_colour_hi(const Prim* prims,
+                                                        int start,
+                                                        const Camera& cam) {
+  return start > 0 ? prims[start - 1].col : cam.bg;
+}
+
+// A pixel with no partial prim above `start`: its 16 subpixels are that
+// colour, each of level L, and floorf(16 L / 16 + 0.5) == L.
+__host__ __device__ inline void write_decided_hi(const Prim* prims, int start,
+                                                 const Camera& cam,
+                                                 unsigned char* rgb) {
+  const float* col = start_colour_hi(prims, start, cam);
+  for (int c = 0; c < 3; ++c) rgb[c] = (unsigned char)level_of(col[c]);
+}
+
+// Row i of output pixel (row, col)'s subpixels, from `start`
+// (class_pixel_hi): each of its 4 subpixels starts at the start colour and
+// blends, in display order, the prims above `start` whose box meets the
+// row, with shade_pixel_hi's arithmetic; their uint8 levels are added to
+// `sum`.  Those are the pixel's partial prims and any it classed none
+// there, whose blend is the identity: skipping those by their class again
+// made K4 9-17% slower on the card (PERF.md §6), since few are none.
+__host__ __device__ inline void shade_row_hi(const Prim* prims,
+                                             const Box* boxes, int n_prims,
+                                             int start, const Camera& cam,
+                                             int row, int col, int i,
+                                             float* sum) {
+  const float* c0 = start_colour_hi(prims, start, cam);
+  const int r = 4 * row + i;
+  float x[4], y[4], img[4][3];
+  for (int j = 0; j < 4; ++j) {
+    pixel_world(cam, r, 4 * col + j, &x[j], &y[j]);
+    for (int c = 0; c < 3; ++c) img[j][c] = c0[c];
+  }
+  for (int k = start; k < n_prims; ++k) {
+    const Prim& p = prims[k];
+    if (!p.active || !box_meets(boxes[k], r, 1, 4 * col, 4)) continue;
+    for (int j = 0; j < 4; ++j) {
+      const float alpha = prim_alpha(p, cam, x[j], y[j], true);
+      for (int c = 0; c < 3; ++c)
+        img[j][c] = img[j][c] * (1.0f - alpha) + p.col[c] * alpha;
+    }
+  }
+  for (int j = 0; j < 4; ++j)
+    for (int c = 0; c < 3; ++c) sum[c] += level_of(img[j][c]);
+}
+
+// The byte of a pixel whose 16 subpixel levels add up to `sum`: the
+// rounded mean.  The levels are integers, their sum at most 16 * 255, so
+// the float sum is exact in any order, as is the division by 16.
+__host__ __device__ inline unsigned char mean_level_hi(float sum) {
+  return (unsigned char)floorf(sum / 16.0f + 0.5f);
+}
+
+// Hi fidelity by class: output pixel (row, col) equal, byte for byte, to
+// shade_pixel_hi's, decided whole where class_pixel_hi leaves no partial
+// prim, else shaded row by row from its start.  The host's loop; the
+// kernel spreads the undecided pixels' rows over lanes.
+__host__ __device__ inline bool shade_pixel_hi_classed(
+    const Prim* prims, const Box* boxes, int n_prims, const Camera& cam,
+    int row, int col, float reach, unsigned char* rgb) {
+  bool partial;
+  const int start =
+      class_pixel_hi(prims, boxes, n_prims, cam, row, col, reach, &partial);
+  if (!partial) {
+    write_decided_hi(prims, start, cam, rgb);
+    return false;
+  }
+  float sum[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 4; ++i)
+    shade_row_hi(prims, boxes, n_prims, start, cam, row, col, i, sum);
+  for (int c = 0; c < 3; ++c) rgb[c] = mean_level_hi(sum[c]);
+  return true;
 }
 
 }  // namespace magical_render

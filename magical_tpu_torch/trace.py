@@ -29,8 +29,9 @@ device).  ``BatchedEnv.counters()`` returns it with the env's kernel
 counters, which its step hands the kernels while a profiler records:
 ``k1_cycles`` (K1's cycles per phase), ``k1_items`` (its narrowphase's
 items and those tested in full), ``k4_cycles`` (K4's cycles building and
-culling, and shading) and ``k4_items`` (K4's active prims and those its
-tile cull kept).  The kernel wrappers' ``.launches`` count always, apart.
+culling, and shading), ``k4_items`` (K4's active prims and those its
+tile cull kept) and ``k4_pixels`` (K4's pixels and those it shaded per
+subpixel).  The kernel wrappers' ``.launches`` count always, apart.
 """
 
 from __future__ import annotations

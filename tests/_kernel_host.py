@@ -42,13 +42,18 @@ def build(out_dir):
     sigs['physics_item_tests'] = sigs['physics_control_step'] + [P] * 2
     sigs['physics_narrowphase'] = sigs['physics_control_step'] + [
         ctypes.c_int] + [P] * 4
+    sigs['render_hi_class_constants'] = [P]
+    sigs['render_hi_probe'] = [P, ctypes.c_int, ctypes.c_int, P,
+                               ctypes.c_int, ctypes.c_int, P,
+                               ctypes.c_float] + [P] * 5
     for name in ('physics_table_layout', 'physics_control_step',
                  'physics_set_lane_order', 'physics_item_tests',
                  'physics_narrowphase',
                  'render_program_layout', 'render_lo_frame',
                  'render_build_display', 'render_hi_frame',
                  'render_hi_into_slot', 'render_lo_tiles2d',
-                 'render_prim_bboxes', 'render_set_trig'):
+                 'render_prim_bboxes', 'render_set_trig',
+                 'render_hi_class_constants', 'render_hi_probe'):
         fn = getattr(lib, name)
         fn.argtypes = sigs[name]
         fn.restype = ctypes.c_int

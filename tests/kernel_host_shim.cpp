@@ -260,12 +260,14 @@ using namespace magical_render;
 // output pixels (ragged at the frame's edge), the prims built from the
 // state whose box meets the tile's samples (slots 0 and 1 always), in
 // display order, with their boxes; then the tile's pixels over them (at
-// hi, the camera on the 4x grid).  Where `items` (int64 (B, 2)) is given,
-// each tile adds to its env's row K4's prim counts: the active prims from
-// slot 2 up, and those of them it kept.
+// hi, the camera on the 4x grid, each pixel classed, then written whole or
+// shaded row by row from its start, as shade_tile_hi does).  Where `items`
+// and `pixels` (int64 (B, 2) each) are given, each tile adds to its env's
+// rows K4's counts: the active prims from slot 2 up, and those of them it
+// kept; its pixels, and those of them left undecided.
 template <bool HI>
 int render_tiles(const SceneArgs& a, int row_tile, int col_tile,
-                 long long* items = nullptr) {
+                 long long* items = nullptr, long long* pixels = nullptr) {
   if (a.P > MAX_PRIMS || row_tile <= 0 || col_tile <= 0) return 1;
   static Prim kept[MAX_PRIMS];
   static Box boxes[MAX_PRIMS];
@@ -297,10 +299,16 @@ int render_tiles(const SceneArgs& a, int row_tile, int col_tile,
           const int row = r0 + q / cols, col = c0 + q % cols;
           unsigned char* rgb =
               a.out + ((size_t)b * a.res * a.res + row * a.res + col) * 3;
-          if (HI)
-            shade_pixel_hi(kept, boxes, n, cam, row, col, rgb);
-          else
+          if (!HI) {
             shade_pixel(kept, n, cam, row, col, rgb);
+            continue;
+          }
+          const bool undecided = shade_pixel_hi_classed(
+              kept, boxes, n, cam, row, col, hi_class_reach(cam), rgb);
+          if (pixels) {
+            pixels[2 * b] += 1;
+            pixels[2 * b + 1] += undecided;
+          }
         }
       }
     }
@@ -337,12 +345,81 @@ extern "C" int render_hi_frame(SCENE_ARGS, void* stream) {
   return render_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile);
 }
 
-// K4's step entry: the same frame, with its prim counts added to `items`
-// where given.  The host has no clock64(): `cycles` is left as it is.
+// K4's step entry: the same frame, with its prim and pixel counts added to
+// `items` and `pixels` where given.  The host has no clock64(): `cycles`
+// is left as it is.
 extern "C" int render_hi_into_slot(SCENE_ARGS, void* cycles, void* items,
-                                   void* stream) {
+                                   void* pixels, void* stream) {
   return render_tiles<true>(SCENE_PASS(4 * res), row_tile, col_tile,
-                            static_cast<long long*>(items));
+                            static_cast<long long*>(items),
+                            static_cast<long long*>(pixels));
+}
+
+// K4's classes: {HI_REACH, HI_CLASS_MARGIN}.
+extern "C" int render_hi_class_constants(float* out) {
+  out[0] = HI_REACH;
+  out[1] = HI_CLASS_MARGIN;
+  return 0;
+}
+
+// K4's classes probed on prims given as they are, in `n_cases` cases of
+// `n_prims` prims and one output pixel each.  A prim is PROBE_F floats
+// (verts NV x 2, nv, radius, colour 3, kind, line width, active; its faces
+// and box made here); the camera of the 4x grid is `cam_f` (scale, half,
+// npx, npy, c, s, rx, ry, lw_scale, two_scale, bg 3) with `ego` and the
+// grid's `res`; case q's pixel is (row, col) = pixels[2 q], pixels[2 q +
+// 1].  Out, for each case: each prim's class at the pixel's centre within
+// `reach` (prim_class; hi_class_reach where `reach` <= 0) into `classes`
+// (n_cases, n_prims), its hard coverage at the 16 subpixel centres, row by
+// row, into `alphas` (n_cases, n_prims, 16); the pixel's bytes over the
+// case's prims in order, classed within `reach`
+// (shade_pixel_hi_classed) into `classed` and subpixel by subpixel
+// (shade_pixel_hi) into `plain` (n_cases, 3 each), and whether it was left
+// undecided into `undecided` (n_cases).
+constexpr int PROBE_F = 2 * NV + 8;
+extern "C" int render_hi_probe(const float* prims, int n_cases, int n_prims,
+                               const float* cam_f, int ego, int res,
+                               const int* pixels, float reach, int* classes,
+                               float* alphas, unsigned char* classed,
+                               unsigned char* plain, int* undecided) {
+  if (n_prims > MAX_PRIMS) return 1;
+  static Prim ps[MAX_PRIMS];
+  static Box boxes[MAX_PRIMS];
+  const Camera cam{res,      ego,      cam_f[0], cam_f[1], cam_f[2],
+                   cam_f[3], cam_f[4], cam_f[5], cam_f[6], cam_f[7],
+                   cam_f[8], cam_f[9], {cam_f[10], cam_f[11], cam_f[12]}};
+  if (reach <= 0.0f) reach = hi_class_reach(cam);
+  for (int q = 0; q < n_cases; ++q) {
+    for (int k = 0; k < n_prims; ++k) {
+      const float* f = prims + ((size_t)q * n_prims + k) * PROBE_F;
+      Prim& p = ps[k];
+      memcpy(p.v, f, sizeof p.v);
+      p.nv = (int)f[2 * NV];
+      p.rad = f[2 * NV + 1];
+      memcpy(p.col, f + 2 * NV + 2, sizeof p.col);
+      p.kind = (int)f[2 * NV + 5];
+      p.lw = f[2 * NV + 6];
+      p.active = f[2 * NV + 7] != 0.0f;
+      prim_faces(p);
+      prim_box(p, cam, boxes[k]);
+    }
+    const int row = pixels[2 * q], col = pixels[2 * q + 1];
+    float xc, yc;
+    pixel_centre_hi(cam, row, col, &xc, &yc);
+    for (int k = 0; k < n_prims; ++k) {
+      const size_t qk = (size_t)q * n_prims + k;
+      classes[qk] = prim_class(ps[k], cam, xc, yc, reach);
+      for (int s = 0; s < 16; ++s) {
+        float x, y;
+        pixel_world(cam, 4 * row + s / 4, 4 * col + s % 4, &x, &y);
+        alphas[qk * 16 + s] = prim_alpha(ps[k], cam, x, y, true);
+      }
+    }
+    undecided[q] = shade_pixel_hi_classed(ps, boxes, n_prims, cam, row, col,
+                                          reach, classed + 3 * q);
+    shade_pixel_hi(ps, boxes, n_prims, cam, row, col, plain + 3 * q);
+  }
+  return 0;
 }
 
 // build_prim's display list of every env, field by field: verts (B, P, NV,

@@ -18,6 +18,7 @@ one:  python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -465,20 +466,20 @@ def test_hi_render_kernel_counts_the_prims_it_culls(cuda, host_lib, task):
     rings = [{v: torch.zeros((spec.depth(v), B, 96, 96, 3),
                              dtype=torch.uint8, device=cuda)
               for v in spec.views} for _ in range(2)]
-    clock, items = (torch.zeros((B, 2), dtype=torch.int64, device=cuda)
-                    for _ in range(2))
+    clock, items, pixels = (torch.zeros((B, 2), dtype=torch.int64,
+                                        device=cuda) for _ in range(3))
     render_kernel.render_hi_into_slots(st, rings[0], 1, *args, spec,
                                        static_shapes=ss)
     render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
                                        static_shapes=ss, phase_clock=clock,
-                                       item_count=items)
+                                       item_count=items, pixel_count=pixels)
     torch.cuda.synchronize()
     for v in spec.views:
         assert torch.equal(rings[0][v], rings[1][v]), v
     assert bool((clock > 0).all())
     active, kept = items.unbind(1)
     assert bool((0 < kept).all() and (kept <= active).all())
-    with pytest.raises(ValueError, match='both counters'):
+    with pytest.raises(ValueError, match='all three counters'):
         render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
                                            static_shapes=ss,
                                            phase_clock=clock)
@@ -491,23 +492,26 @@ def test_hi_render_kernel_counts_the_prims_it_culls(cuda, host_lib, task):
         keep = _kernel_host.torch_trig(host_lib, st)
         fields, a = _kernel_host.scene_args(host, prog, out, 96, v, 4)
         assert host_lib.render_hi_into_slot(
-            *a, *render_kernel.HI_TILE, None, want.data_ptr(), None) == 0
+            *a, *render_kernel.HI_TILE, None, want.data_ptr(), None,
+            None) == 0
         assert host_lib.render_trig_misses() == 0
         del keep, fields
     assert torch.equal(items.cpu(), want)
 
 
 def test_a_traced_hi_step_counts_k4(cuda):
-    """A hi BatchedEnv's steps fill counters()' k4_cycles and k4_items
-    while a profiler records, and leave them at zero otherwise: the active
-    prims are each env's active display prims from slot 2 up, in each of
-    its 9 blocks and each traced step."""
+    """A hi BatchedEnv's steps fill counters()' k4_cycles, k4_items and
+    k4_pixels while a profiler records, and leave them at zero otherwise:
+    the active prims are each env's active display prims from slot 2 up,
+    in each of its 9 blocks and each traced step; the pixels each frame's,
+    a few percent of them undecided."""
     from torch.profiler import ProfilerActivity, profile
 
     from magical_tpu_torch import trace
     env, carry, act = _hi_states(cuda, 'MoveToCorner', n_steps=1)
     zeros = {'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
-             'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0)}
+             'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0),
+             'k4_pixels': dict.fromkeys(render_kernel.K4_PIXELS, 0)}
     assert {k: env.counters()[k] for k in zeros} == zeros
     trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -522,6 +526,78 @@ def test_a_traced_hi_step_counts_k4(cuda):
     items = counters['k4_items']
     assert items['active'] == 2 * 9 * int(disp['active'][:, 2:].sum())
     assert 0 < items['kept'] < items['active']
+    pixels = counters['k4_pixels']
+    views = len(env.preproc.views)
+    assert pixels['pixels'] == 2 * views * carry.state.batch * 96 * 96
+    assert 0 < pixels['undecided'] < 0.2 * pixels['pixels']
+
+
+def _held_actions(batch, steps, seed):
+    """(steps, batch) int32 actions: each env holds one of the 18 for 4
+    to 16 steps at a time, drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((steps, batch), np.int32)
+    for b in range(batch):
+        t = 0
+        while t < steps:
+            n = int(rng.integers(4, 17))
+            out[t:t + n, b] = rng.integers(0, C.N_ACTIONS)
+            t += n
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'ClusterColour'])
+def test_hi_frames_over_whole_episodes_are_the_host_builds(cuda, host_lib,
+                                                            task):
+    """Whole episodes of `task`-TestAll at hi (30 and 138 prims), 16 envs
+    under held random actions: at every 8th step and the last, each step
+    frame K4 wrote into the ring is, byte for byte, the host build's frame
+    of the same state with the card's cos and sin (the frames the CPU
+    tests hold byte for byte to the plain hi render), and the one K4 writes
+    with its counters; K4's k4_pixels are the host build's; and the frame
+    is within HI_MAX_LEVELS of the plain render on the card."""
+    env = BatchedEnv(f'{task}-TestAll-LoRes4E-v0', fidelity='hi',
+                     device=cuda)
+    spec, args, ss = env.preproc, env._render_args(), env.static_shapes
+    prog = render_kernel.program_arrays(*args, ss)
+    B, steps = 16, env.max_episode_steps
+    acts = _held_actions(B, steps, 11).to(cuda)
+    carry, _ = env.reset(11, B)
+    checked = 0
+    for i in range(steps):
+        carry, *_ = env.step(carry, acts[i])
+        if (i + 1) % 8 and i + 1 < steps:
+            continue
+        st, t = carry.state, carry.t
+        counts = [torch.zeros((B, 2), dtype=torch.int64, device=cuda)
+                  for _ in range(3)]
+        rings = {v: torch.zeros_like(carry.frames[v]) for v in spec.views}
+        render_kernel.render_hi_into_slots(
+            st, rings, t, *args, spec, static_shapes=ss,
+            phase_clock=counts[0], item_count=counts[1],
+            pixel_count=counts[2])
+        torch.cuda.synchronize()
+        host = st.replace(**{f.name: getattr(st, f.name).cpu()
+                             for f in dataclasses.fields(st)})
+        want = torch.zeros((B, 2), dtype=torch.int64)
+        for v in spec.views:
+            got = carry.frames[v][t % spec.depth(v)]
+            assert torch.equal(rings[v][t % spec.depth(v)], got), (i, v)
+            out = torch.empty((B, 96, 96, 3), dtype=torch.uint8)
+            keep = _kernel_host.torch_trig(host_lib, st)
+            fields, a = _kernel_host.scene_args(host, prog, out, 96, v, 4)
+            assert host_lib.render_hi_into_slot(
+                *a, *render_kernel.HI_TILE, None, None, want.data_ptr(),
+                None) == 0
+            assert host_lib.render_trig_misses() == 0
+            del keep, fields
+            assert torch.equal(got.cpu(), out), (i, v)
+            _hi_close(got, render.render_views(
+                st, *args, views=(v,), fidelity='hi',
+                static_shapes=ss)[v])
+        assert torch.equal(counts[2].cpu(), want), i
+        checked += 1
+    assert checked == steps // 8 + (steps % 8 > 0)
 
 
 def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):

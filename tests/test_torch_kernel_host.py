@@ -21,7 +21,8 @@ import torch
 
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
-from magical_tpu_torch.core import physics, physics_kernel, render
+from magical_tpu_torch.core import collision, physics, physics_kernel
+from magical_tpu_torch.core import render
 from magical_tpu_torch.core import render_kernel
 from magical_tpu_torch.tasks import ALL_TASKS
 
@@ -304,7 +305,8 @@ def test_hi_render_kernel_counts_the_prims_it_culls(host_lib, task, view):
     keep = _torch_trig(host_lib, st)
     fields, args = _scene_args(st, prog, out, 96, view, 4)
     assert host_lib.render_hi_into_slot(
-        *args, *render_kernel.HI_TILE, None, items.data_ptr(), None) == 0
+        *args, *render_kernel.HI_TILE, None, items.data_ptr(), None,
+        None) == 0
     assert host_lib.render_trig_misses() == 0
     del keep, fields
     assert torch.equal(out, plain)
@@ -319,6 +321,291 @@ def test_hi_render_kernel_counts_the_prims_it_culls(host_lib, task, view):
     assert torch.equal(kept[sure], want_kept[sure])
     # the cull keeps fewer than every active prim in every tile, and some
     assert bool((0 < kept).all() and (kept < active).all())
+
+
+def _plain_k4_pixels(st, scene, ss, view, reach, res=96, slack=0.0):
+    """K4's pixel counts (render_kernel.K4_PIXELS) of each env, from the
+    plain display list in float64: every pixel, and those with a partial
+    prim above their topmost full one, each prim classed at the centre of
+    the pixel's 4x4 subpixels within `reach` + `slack` world units, where
+    its screen box (prim_screen_bboxes on the 4x grid), grown by 1000 x
+    `slack` subpixels, meets them; a box that misses makes a prim none."""
+    disp = render_kernel.kernel_display(st, *scene, ss)
+    bb, bounded = render_kernel.prim_screen_bboxes(disp, st, view, 4 * res)
+    ego, scale, half, npx, npy, lw_scale = (
+        float(np.float32(x)) for x in render_kernel.camera_args(view,
+                                                                4 * res)[:6])
+    q = torch.arange(res, dtype=torch.float64)
+    cx = ((4 * q + 2) / scale)[None, None, :]          # (1, 1, col)
+    cy = ((4 * q + 2) / scale)[None, :, None]          # (1, row, 1)
+    if not ego:
+        x, y = (cx - half).expand(st.batch, res, res), \
+            (half - cy).expand(st.batch, res, res)
+    else:
+        c, s = (f(st.angle[:, 0]).double()[:, None, None]
+                for f in (torch.cos, torch.sin))
+        rx, ry = (st.pos[:, 0, i].double()[:, None, None] for i in (0, 1))
+        spx, spy = cx - npx, (4 * res - (4 * q + 2))[None, :, None] / scale \
+            - npy
+        x, y = c * spx - s * spy + rx, s * spx + c * spy + ry
+    v0, _, n, valid = collision._poly_edges(disp['verts'].double(),
+                                            disp['nv'])
+    offs = (v0 * n).sum(-1)
+    reach = reach + slack
+    full_at = torch.full((st.batch, res, res), -1)
+    classes = []
+    for k in range(disp['nv'].shape[1]):
+        circle = torch.hypot(x - disp['verts'][:, k, 0, 0].double()[
+            :, None, None], y - disp['verts'][:, k, 0, 1].double()[
+            :, None, None])
+        faces = x[..., None] * n[:, k, None, None, :, 0] \
+            + y[..., None] * n[:, k, None, None, :, 1] \
+            - offs[:, k, None, None]
+        faces = torch.where(valid[:, k, None, None], faces, -1e9)
+        d = torch.where((disp['nv'][:, k] == 1)[:, None, None], circle,
+                        faces.amax(-1)) - disp['radius'][:, k].double()[
+            :, None, None]
+        u0, u1, w0, w1 = torch.where(
+            bounded[:, k, None], bb[:, k],
+            torch.tensor([-1e30, 1e30, -1e30, 1e30])).double()[
+            :, None, None].unbind(-1)
+        g = 1e3 * slack
+        meets = ~((u1 + g < 4 * q[None, None, :] + 0.5)
+                  | (u0 - g > 4 * q[None, None, :] + 3.5)
+                  | (w1 + g < 4 * q[None, :, None] + 0.5)
+                  | (w0 - g > 4 * q[None, :, None] + 3.5)) \
+            & disp['active'][:, k, None, None]
+        if int(disp['kind'][k]) == render.KIND_FILL:
+            full = meets & (d < -reach)
+            partial = meets & (d.abs() <= reach)
+        else:
+            band = max(float(disp['lw'][k]) * lw_scale, 1.0) / (2 * scale) \
+                + 0.5 / scale
+            full = torch.zeros_like(meets)
+            partial = meets & (d.abs() - reach < band)
+        full_at = torch.where(full, k, full_at)
+        classes.append(partial)
+    partial = torch.stack(classes, -1)
+    above = torch.arange(len(classes)) > full_at[..., None]
+    undecided = (partial & above).any(-1).reshape(st.batch, -1).sum(1)
+    return torch.full_like(undecided, res * res), undecided
+
+
+@pytest.mark.parametrize('task', ['MoveToCorner', 'ClusterColour'])
+@pytest.mark.parametrize('view', ['allo', 'ego'])
+def test_hi_render_kernel_counts_its_undecided_pixels(host_lib, task, view):
+    """K4's step entry, built for the host, with its pixel counts on
+    TestAll states (30 and 138 prims): every pixel of each env's frame,
+    and those left undecided by their classes, as a plain float64 count
+    from the display list gives them (held between the counts with the
+    reach and the boxes shrunk and grown by rounding's width, equal where
+    those agree); a few percent of the pixels, none of them where the
+    frame differs from the plain hi render."""
+    st, scene, ss = _family_scene(task, 'TestAll', 7, B=3)
+    prog = render_kernel.program_arrays(*scene, ss)
+    out = torch.empty((st.batch, 96, 96, 3), dtype=torch.uint8)
+    pixels = torch.zeros((st.batch, len(render_kernel.K4_PIXELS)),
+                         dtype=torch.int64)
+    keep = _torch_trig(host_lib, st)
+    fields, args = _scene_args(st, prog, out, 96, view, 4)
+    assert host_lib.render_hi_into_slot(
+        *args, *render_kernel.HI_TILE, None, None, pixels.data_ptr(),
+        None) == 0
+    assert host_lib.render_trig_misses() == 0
+    del keep, fields
+    plain = render.render_views(st, *scene, views=(view,), fidelity='hi',
+                                static_shapes=ss)[view]
+    assert torch.equal(out, plain)
+    constants = (ctypes.c_float * 2)()
+    host_lib.render_hi_class_constants(constants)
+    reach = constants[0] / render_kernel.camera_args(view, 384)[1] \
+        + constants[1]
+    total, undecided = pixels.unbind(1)
+    want_total, want = _plain_k4_pixels(st, scene, ss, view, reach)
+    assert torch.equal(total, want_total)
+    _, least = _plain_k4_pixels(st, scene, ss, view, reach, slack=-1e-6)
+    _, most = _plain_k4_pixels(st, scene, ss, view, reach, slack=1e-6)
+    assert bool(((least <= undecided) & (undecided <= most)).all())
+    sure = least == most
+    assert int(sure.sum()) >= st.batch - 1
+    assert torch.equal(undecided[sure], want[sure])
+    assert bool(((0.01 * total < undecided) & (undecided < 0.2 * total))
+                .all()), undecided / total
+
+
+# K4's classes (csrc/render_lo.cuh prim_class): the prim kinds of the
+# sweep, as (kind, nv, radius, line width): a polygon fill, a rounded one
+# (a block's square has radius 0.00213), a circle, the arena border's
+# outline and a goal's stippled one.
+PROBE_KINDS = {'polygon': (render.KIND_FILL, 4, 0.0, 0.0),
+               'rounded': (render.KIND_FILL, 4, 0.01, 0.0),
+               'circle': (render.KIND_FILL, 1, 0.05, 0.0),
+               'outline': (render.KIND_LINE, 4, 0.0, 1.0),
+               'stipple': (render.KIND_LINE_STIPPLE, 4, 0.0, 2.5)}
+PROBE_F = 2 * render.NV + 8
+N_ANGLES_HI = 64
+
+
+def _probe_camera(view, res=384):
+    """The probe's camera floats of the 4x grid at `res` for `view` (the
+    ego view's robot at a fixed pose), and each pixel's centre in float64:
+    (cam_f float32, ego, centre(row, col) -> (x, y))."""
+    ego, scale, half, npx, npy, lw_scale, two_scale, *bg = (
+        np.float32(x) for x in render_kernel.camera_args(view, res))
+    c, s, rx, ry = (np.float32(x) for x in (np.cos(0.7), np.sin(0.7), 0.2,
+                                            -0.3))
+    if not ego:
+        c, s, rx, ry = (np.float32(x) for x in (1.0, 0.0, 0.0, 0.0))
+    cam_f = np.array([scale, half, npx, npy, c, s, rx, ry, lw_scale,
+                      two_scale, *bg], np.float32)
+    f = [float(x) for x in cam_f]
+
+    def centre(row, col):
+        cx = (4 * col + 2) / f[0]
+        if not ego:
+            return cx - f[1], f[1] - (4 * row + 2) / f[0]
+        spx, spy = cx - f[2], (res - (4 * row + 2)) / f[0] - f[3]
+        return f[4] * spx - f[5] * spy + f[6], f[5] * spx + f[4] * spy + f[7]
+    return cam_f, int(ego), centre
+
+
+def _probe_prims(kind, centre, theta, dist, tangent, colour):
+    """Prims of PROBE_KINDS[kind], one for each entry of the arrays
+    `centre` (n, 2), `theta`, `dist` and `tangent` (n,): each one's SDF at
+    world point `centre` is `dist`, nearest to it across a face (a circle:
+    its rim) whose outward normal points at angle `theta`, a polygon moved
+    `tangent` along that face; (n, PROBE_F) floats."""
+    k, nv, rad, lw = PROBE_KINDS[kind]
+    n = np.stack([np.cos(theta), np.sin(theta)], -1)
+    t = np.stack([-n[:, 1], n[:, 0]], -1)
+    out = np.zeros((len(theta), PROBE_F))
+    if nv == 1:
+        c = centre - (rad + dist)[:, None] * n
+        out[:, :2 * render.NV] = np.tile(c, render.NV)
+    else:
+        h = 0.3           # the box TR, TL, BL, BR: face 0's normal is +y
+        local = np.array([[h, h], [-h, h], [-h, -h], [h, -h]])
+        rot = theta - np.pi / 2
+        m = np.stack([np.stack([np.cos(rot), -np.sin(rot)], -1),
+                      np.stack([np.sin(rot), np.cos(rot)], -1)], -2)
+        c = centre - (h + rad + dist)[:, None] * n + tangent[:, None] * t
+        v = np.einsum('vj,nij->nvi', local, m) + c[:, None]
+        out[:, :2 * render.NV] = np.concatenate(
+            [v, np.repeat(v[:, 3:], 4, 1)], 1).reshape(len(theta), -1)
+    out[:, 2 * render.NV:] = [nv, rad, *colour, k, lw, 1.0]
+    return out
+
+
+def _probe(host_lib, prims, pixels, cam_f, ego, reach=0.0, res=384):
+    """render_hi_probe over cases of prims (n_cases, n_prims, PROBE_F) and
+    one output pixel each (n_cases, 2): (classes, alphas, classed bytes,
+    plain bytes, undecided)."""
+    prims = np.ascontiguousarray(prims, np.float32)
+    pixels = np.ascontiguousarray(pixels, np.int32)
+    n_cases, n_prims = prims.shape[:2]
+    classes = np.empty((n_cases, n_prims), np.int32)
+    alphas = np.empty((n_cases, n_prims, 16), np.float32)
+    classed, plain = (np.empty((n_cases, 3), np.uint8) for _ in range(2))
+    undecided = np.empty(n_cases, np.int32)
+    def ptr(x):
+        return x.ctypes.data_as(ctypes.c_void_p)
+    assert host_lib.render_hi_probe(
+        ptr(prims), n_cases, n_prims, ptr(cam_f), ego, res, ptr(pixels),
+        reach, ptr(classes), ptr(alphas), ptr(classed), ptr(plain),
+        ptr(undecided)) == 0
+    return classes, alphas, classed, plain, undecided
+
+
+# the arena's fill under every probe: a square far larger than the view
+GROUND = np.array([10.0, 10.0, -10.0, 10.0, -10.0, -10.0] + [10.0, -10.0] * 5
+                  + [4, 0.0, 1.0, 1.0, 1.0, render.KIND_FILL, 0.0, 1.0])
+
+
+def _class_sweep(host_lib, reach=0.0):
+    """Every prim kind of PROBE_KINDS over a full fill (the arena's), at
+    N_ANGLES_HI directions, several pixels of both views and tangent
+    offsets, at distances from the pixel's centre across the pixel
+    (quarter-subpixel steps) and, in steps of 3e-8, around each threshold
+    of the classes (a fill's +-R, an outline's band + R; R = HI_REACH
+    subpixels, the margin left out), with the classes taken within `reach`
+    (the kernel's where 0): per kind, the swept prim's (classes, alphas)
+    and the pixels' (classed, plain, undecided)."""
+    constants = (ctypes.c_float * 2)()
+    host_lib.render_hi_class_constants(constants)
+    hi_reach = float(constants[0])
+    pixels = np.array([(40, 50), (13, 77), (88, 6)])
+    out = {}
+    for kind, (k, _, _, lw) in PROBE_KINDS.items():
+        res = []
+        for view in ('allo', 'ego'):
+            cam_f, ego, centre = _probe_camera(view)
+            scale = float(cam_f[0])
+            r0 = hi_reach / scale
+            edges = [r0, -r0] if k == render.KIND_FILL else [
+                e * (max(lw, 1.0) / (2 * scale) + 0.5 / scale + r0)
+                for e in (1, -1)]
+            dists = np.concatenate(
+                [np.linspace(-4, 4, 33) / scale]
+                + [e + 3e-8 * np.arange(-48, 49) for e in edges])
+            px, j, d = (x.reshape(-1) for x in np.meshgrid(
+                np.arange(len(pixels)), np.arange(N_ANGLES_HI), dists,
+                indexing='ij'))
+            centres = np.array([centre(*p) for p in pixels])[px]
+            prims = _probe_prims(kind, centres, 2 * np.pi * j / N_ANGLES_HI,
+                                 d, 0.004 * ((7 * j + 3 * px) % 11),
+                                 (0.2, 0.5, 0.7))
+            prims = np.stack([np.broadcast_to(GROUND, prims.shape), prims], 1)
+            res.append(_probe(host_lib, prims, pixels[px], cam_f, ego, reach))
+        classes, alphas, classed, plain, undecided = (
+            np.concatenate(x) for x in zip(*res))
+        assert (classes[:, 0] == 1).all()           # the arena's fill: full
+        out[kind] = (classes[:, 1], alphas[:, 1], classed, plain, undecided)
+    return out
+
+
+def _class_faults(swept):
+    """Per kind, the sweep's cases in which a class is wrong (none with a
+    subpixel covered, full with one not) or a pixel's bytes differ from
+    shade_pixel_hi's."""
+    faults = {}
+    for kind, (classes, alphas, classed, plain, _) in swept.items():
+        none = classes == 0
+        full = classes == 1
+        wrong = (none & (alphas != 0).any(1)) | (full & (alphas != 1).any(1))
+        faults[kind] = int((wrong | (classed != plain).any(1)).sum())
+    return faults
+
+
+def test_hi_classes_hold_in_an_adversarial_sweep(host_lib):
+    """K4's classes (prim_class within hi_class_reach) on every prim kind,
+    at N_ANGLES_HI directions and sub-subpixel distances around each
+    threshold: a prim classed none has coverage exactly 0 at all 16
+    subpixels, one classed full exactly 1, only fills are ever full, and
+    every pixel, decided whole or shaded from its start, has
+    shade_pixel_hi's bytes; every kind is classed none and partial, every
+    fill full, and pixels are both decided and undecided."""
+    swept = _class_sweep(host_lib)
+    assert _class_faults(swept) == dict.fromkeys(PROBE_KINDS, 0)
+    for kind, (classes, _, _, _, undecided) in swept.items():
+        fill = PROBE_KINDS[kind][0] == render.KIND_FILL
+        assert set(np.unique(classes)) == ({0, 1, 2} if fill else {0, 2}), \
+            kind
+        assert 0 < undecided.mean() < 1, kind
+
+
+@pytest.mark.parametrize('mutant', ['margin 0', 'radius sqrt 2'])
+def test_hi_classes_without_their_reach_fail_the_sweep(host_lib, mutant):
+    """The sweep catches a reach short of the classes': without the
+    rounding margin (HI_REACH subpixels alone), or with the distance to
+    the nearest diagonal subpixel (sqrt 2) in place of the farthest's, some
+    prim is classed none or full where a subpixel says otherwise."""
+    constants = (ctypes.c_float * 2)()
+    host_lib.render_hi_class_constants(constants)
+    scale = np.float32(render_kernel.camera_args('allo', 384)[1])
+    sub = np.float32(constants[0]) if mutant == 'margin 0' \
+        else np.float32(np.sqrt(2.0))
+    faults = _class_faults(_class_sweep(host_lib, float(sub / scale)))
+    assert sum(faults.values()) > 0, faults
 
 
 @pytest.mark.parametrize('task', ['FixColour', 'MakeLine', 'FindDupe',

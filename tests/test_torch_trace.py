@@ -23,7 +23,8 @@ ZEROS = {'resets': 0, 'steps': 0, 'reset_syncs': 0, 'reset_draw_bytes': 0,
          'k1_cycles': dict.fromkeys(physics_kernel.PHASES, 0),
          'k1_items': dict.fromkeys(physics_kernel.ITEMS, 0),
          'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
-         'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0)}
+         'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0),
+         'k4_pixels': dict.fromkeys(render_kernel.K4_PIXELS, 0)}
 # each span: the spans one of which must hold every one of its ranges
 # (None: none need)
 PARENTS = {
@@ -122,7 +123,8 @@ def test_a_traced_reset_counts_its_syncs_and_draws(traced):
     assert counters['reset_draw_bytes'] == d.nbytes + seeds
     # 11 placements of 128 proposals (x, y, angle), float32, per env
     assert d.nbytes >= B * 11 * 128 * 3 * 4
-    for k in ('k1_cycles', 'k1_items', 'k4_cycles', 'k4_items'):  # CPU: none
+    for k in ('k1_cycles', 'k1_items', 'k4_cycles', 'k4_items',
+              'k4_pixels'):                                   # CPU: none
         assert counters[k] == ZEROS[k]
 
 
