@@ -1158,6 +1158,7 @@ def time_kernel(k, env, carry, tiles=None):
     alone over each tiling of TILINGS, and the work of the function for
     its bound (k1_work, render_work).  Returns a dict of them."""
     import torch
+    from magical_tpu_torch import trace
     from magical_tpu_torch.core import (physics, physics_kernel, preproc,
                                         render, render_kernel as rk)
     state = carry.state.clone()
@@ -1169,15 +1170,12 @@ def time_kernel(k, env, carry, tiles=None):
         ops, nbytes = k1_work(state)
         # where a step's cycles go: clock64() per phase, summed over envs;
         # the narrowphase's items, and those its cull left to test in full
-        clock = torch.zeros((state.batch, len(physics_kernel.PHASES)),
-                            dtype=torch.int64, device=DEVICE)
-        items = torch.zeros((state.batch, len(physics_kernel.ITEMS)),
-                            dtype=torch.int64, device=DEVICE)
-        physics_kernel.control_step(state.clone(), act, phase_clock=clock,
-                                    item_count=items)
-        per_env = clock.double().sum(0) / state.batch
-        phases = dict(zip(physics_kernel.PHASES, per_env.tolist()))
-        items = dict(zip(physics_kernel.ITEMS, items.sum(0).tolist()))
+        counters = trace.KernelCounters()
+        physics_kernel.control_step(state.clone(), act, counters=counters)
+        totals = counters.totals()
+        phases = {p: n / state.batch
+                  for p, n in totals['k1_cycles'].items()}
+        items = totals['k1_items']
         return dict(ms=ms, alone_ms=ms, ops=ops, bytes=nbytes, phases=phases,
                     items=items,
                     plain_ms=cuda_ms(lambda: physics.control_step(state, act),

@@ -47,15 +47,6 @@ from magical_tpu_torch.tasks import ALL_TASKS, randomize
 from magical_tpu_torch.tasks.move_to_corner import debug_shaped_reward
 
 
-# The kernels' counters of BatchedEnv.counters(), in the order the step
-# passes them: K1's, then K4's.
-COUNTERS = {'k1_cycles': physics_kernel.PHASES,
-            'k1_items': physics_kernel.ITEMS,
-            'k4_cycles': render_kernel.K4_PHASES,
-            'k4_items': render_kernel.K4_ITEMS,
-            'k4_pixels': render_kernel.K4_PIXELS}
-
-
 @dataclasses.dataclass
 class EnvCarry:
     """Full per-batch carried state: physics state, the frame rings
@@ -114,12 +105,9 @@ class BatchedEnv:
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
         self.static_shapes = self.task.static_block_shapes(self.flags)
-        # {batch: the int64 counters of K1, (batch, len(PHASES)) cycles a
-        # phase and (batch, len(ITEMS)) its narrowphase's items, then of
-        # K4, (batch, len(K4_PHASES)) cycles, (batch, len(K4_ITEMS)) prims
-        # and (batch, len(K4_PIXELS)) pixels}, counted while a profiler
-        # records (counters)
-        self._counts = {}
+        # the kernels' counters of this env's steps, handed to the kernels
+        # while a profiler records (counters)
+        self._counters = trace.KernelCounters()
 
     # -- rendering ---------------------------------------------------------
 
@@ -139,13 +127,12 @@ class BatchedEnv:
         return self.render_views(state, self.preproc.res, self.preproc.views)
 
     def _render_into_rings(self, state: EnvState, frames: dict, t: int,
-                           k4_counts=(None,) * 3):
+                           counters=None):
         args = (state, frames, t, *self._render_args(), self.preproc)
         kwargs = dict(res=self.preproc.res, static_shapes=self.static_shapes)
         if self.fidelity == 'hi':
-            return render_kernel.render_hi_into_slots(
-                *args, **kwargs, phase_clock=k4_counts[0],
-                item_count=k4_counts[1], pixel_count=k4_counts[2])
+            return render_kernel.render_hi_into_slots(*args, **kwargs,
+                                                      counters=counters)
         return render_kernel.render_into_slots(*args, **kwargs)
 
     # -- the API -----------------------------------------------------------
@@ -187,10 +174,8 @@ class BatchedEnv:
         """One control step of every env: (carry, obs, reward, done,
         info).  On CUDA the physics kernel updates ``carry.state`` in place
         and the frame rings are written in place.  While a profiler
-        records, the physics kernel counts its cycles a phase and its
-        narrowphase's items into :meth:`counters`' ``k1_cycles`` and
-        ``k1_items``, and at hi K4 its cycles a phase, its prims and its
-        pixels into ``k4_cycles``, ``k4_items`` and ``k4_pixels``."""
+        records on the card, the kernels count into this env's
+        :meth:`counters`: K1 always, K4 at hi."""
         with trace.span('magical.step'):
             trace.count('steps')
             return self._step(carry, action)
@@ -198,17 +183,10 @@ class BatchedEnv:
     def _step(self, carry: EnvCarry, action):
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
         B = action.shape[0]
-        counts = (None,) * len(COUNTERS)
-        if self.device.type == 'cuda' and trace.recording():
-            if B not in self._counts:
-                self._counts[B] = tuple(
-                    torch.zeros((B, len(n)), dtype=torch.int64,
-                                device=self.device)
-                    for n in COUNTERS.values())
-            counts = self._counts[B]
+        counters = (self._counters if self.device.type == 'cuda'
+                    and trace.recording() else None)
         state = physics_kernel.control_step(carry.state, action.contiguous(),
-                                            phase_clock=counts[0],
-                                            item_count=counts[1])
+                                            counters=counters)
         t = carry.t + 1
         # LOCKSTEP INVARIANT: every env in the batch shares one step count
         # (fixed-length episodes, whole-batch resets), so the frame-ring
@@ -229,7 +207,7 @@ class BatchedEnv:
                 obs = self._render_fresh(state)
         else:
             frames = self._render_into_rings(state, carry.frames, t,
-                                             counts[2:])
+                                             counters)
             obs = preproc.observation_cf(self.preproc, frames, t,
                                          self.preproc.res)
         with trace.span('magical.score'):
@@ -266,25 +244,12 @@ class BatchedEnv:
         """The counts of :mod:`magical_tpu_torch.trace`, made while a
         ``torch.profiler`` recorded (``resets``, ``steps``,
         ``reset_syncs``, ``reset_draw_bytes``, over every env of the
-        process), and, over this env's recorded steps on the card, K1's
-        cycles in each phase of ``physics_kernel.PHASES`` (``k1_cycles``)
-        and its narrowphase's items of ``physics_kernel.ITEMS``
-        (``k1_items``: the items of active slots, and those tested in
-        full, summed over substeps), and K4's cycles in each phase of
-        ``render_kernel.K4_PHASES`` (``k4_cycles``) and its prims of
-        ``render_kernel.K4_ITEMS`` (``k4_items``: the active prims from
-        slot 2 up, and those the tile cull kept, summed over blocks) and
-        its pixels of ``render_kernel.K4_PIXELS`` (``k4_pixels``: the
-        frames' pixels, and those shaded per subpixel because a prim's edge
-        crosses them; K4's zero at lo): read from the card, so it syncs;
-        call it after a run."""
-        sums = [[0] * len(n) for n in COUNTERS.values()]
-        for counts in self._counts.values():
-            sums = [[a + b for a, b in zip(s, c.sum(0).tolist())]
-                    for s, c in zip(sums, counts)]
-        return dict(trace.counts(), **{
-            key: dict(zip(names, total))
-            for (key, names), total in zip(COUNTERS.items(), sums)})
+        process), and the totals of every kernel counter over this env's
+        recorded steps on the card, each ``{field: count}`` summed over
+        envs, zeros where no kernel counted (as on the CPU).  The kernel
+        modules declare their counters (``trace.declare``).  Read from the
+        card, so it syncs; call it after a run."""
+        return dict(trace.counts(), **self._counters.totals())
 
     # -- pickling (reference envs are EzPickle-able) ------------------------
 

@@ -38,6 +38,10 @@ PHASES = ('narrowphase', 'prestep', 'sweep', 'apply', 'joints', 'other')
 # What the kernel counts of its narrowphase's items, summed over substeps:
 # the items of active slots, and those the cull left for the full test.
 ITEMS = ('candidates', 'tested')
+# K1's counters (trace.KernelCounters): each env's clock64() cycles in
+# each phase, and its narrowphase's items.
+trace.declare('k1_cycles', PHASES)
+trace.declare('k1_items', ITEMS)
 
 _TABLES = {}
 
@@ -165,29 +169,19 @@ def kernel_args(state: EnvState, action: torch.Tensor, ftab, itab,
                                                       item_count)]
 
 
-def check_counter(name, x, state, width):
-    """Raise unless `x` is None or a contiguous int64 (B, `width`) tensor
-    on the state's device: a kernel's counter."""
-    if x is not None and (x.device != state.device
-                          or x.dtype != torch.int64
-                          or tuple(x.shape) != (state.batch, width)
-                          or not x.is_contiguous()):
-        raise ValueError(f'{name} must be a contiguous int64 '
-                         f'{(state.batch, width)} tensor on {state.device}')
-
-
 def control_step(state: EnvState, action: torch.Tensor,
-                 phase_clock=None, item_count=None) -> EnvState:
+                 counters: trace.KernelCounters | None = None
+                 ) -> EnvState:
     """One control step for every env.
 
     On a CUDA state this launches the kernel, which updates the state's
     tensors IN PLACE (the returned state is the argument); `action` must
-    be an int32 (B,) tensor on the same device.  `phase_clock`, an int64
-    (B, len(PHASES)) CUDA tensor, gets each env's clock64() cycles in each
-    phase of :data:`PHASES` added to it; `item_count`, an int64 (B,
-    len(ITEMS)) one, each env's narrowphase items of :data:`ITEMS`.  On a
-    CPU state it runs the plain version, :func:`core.physics.control_step`,
-    which returns a new state.  Both run in one ``magical.k1`` span
+    be an int32 (B,) tensor on the same device.  With `counters`, the
+    kernel adds each env's clock64() cycles in each phase of
+    :data:`PHASES` to its ``k1_cycles`` and its narrowphase's items of
+    :data:`ITEMS` to its ``k1_items``.  On a CPU state it runs the plain
+    version, :func:`core.physics.control_step`, which returns a new state
+    and counts nothing.  Both run in one ``magical.k1`` span
     (:mod:`trace`)."""
     with trace.span('magical.k1'):
         if state.device.type == 'cpu' and action.device.type == 'cpu':
@@ -196,14 +190,16 @@ def control_step(state: EnvState, action: torch.Tensor,
             raise ValueError(f'physics kernel needs a CUDA state, got '
                              f'{state.device}')
         check_inputs(state, action)
-        check_counter('phase_clock', phase_clock, state, len(PHASES))
-        check_counter('item_count', item_count, state, len(ITEMS))
+        clock = items = None
+        if counters is not None:
+            clock, items = (counters.take(name, state.batch, state.device)
+                            for name in ('k1_cycles', 'k1_items'))
         ftab, itab = _tables(state.max_blocks, state.device)
         stream = torch.cuda.current_stream(state.device).cuda_stream
         entry = f'physics_control_step_mb{state.max_blocks}'
         rc = getattr(_build.library(), entry)(
-            *kernel_args(state, action, ftab, itab, phase_clock=phase_clock,
-                         item_count=item_count),
+            *kernel_args(state, action, ftab, itab, phase_clock=clock,
+                         item_count=items),
             stream)
         _build.check(rc, entry)
         control_step.launches += 1

@@ -42,7 +42,7 @@ import torch
 from magical_tpu_torch import _build, trace
 from magical_tpu_torch import constants as C
 from magical_tpu_torch import geometry as G
-from magical_tpu_torch.core import collision, physics_kernel, preproc, render
+from magical_tpu_torch.core import collision, preproc, render
 from magical_tpu_torch.core.state import EnvState
 
 MAX_PRIMS = 240         # MAX_PRIMS of csrc/render_lo.cuh
@@ -89,6 +89,12 @@ HI_TILE = (32, 32)
 K4_PHASES = ('build', 'shade')
 K4_ITEMS = ('active', 'kept')
 K4_PIXELS = ('pixels', 'undecided')
+# K4's counters (trace.KernelCounters), in the order of its entry point's
+# pointers.
+K4_COUNTERS = ('k4_cycles', 'k4_items', 'k4_pixels')
+trace.declare('k4_cycles', K4_PHASES)
+trace.declare('k4_items', K4_ITEMS)
+trace.declare('k4_pixels', K4_PIXELS)
 
 _PROGRAMS = {}
 
@@ -274,13 +280,13 @@ _ENTRIES = {'render_lo_into_slot': (1, LO_TILE),
 
 
 def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
-                  view: str, res: int, tile=None, counts=(None,) * 3):
+                  view: str, res: int, tile=None, counters=None):
     """Kernel entry point `entry` on the state itself: the kernel builds
     each env's display list from `prog` (:func:`display_program`) and the
     state's tensors, in tiles of `tile` = (rows, cols) output pixels (the
     entry's own where None), and writes `out` (B, res, res, 3) uint8.
-    ``render_hi_into_slot`` also takes `counts`, K4's (phase_clock,
-    item_count, pixel_count) or Nones."""
+    ``render_hi_into_slot`` also takes `counters`, whose
+    :data:`K4_COUNTERS` it adds to, or None."""
     grid, own_tile = _ENTRIES[entry]
     B, P = state.batch, prog[0].shape[0]
     if P > MAX_PRIMS:
@@ -308,12 +314,8 @@ def _launch_scene(entry: str, prog, state: EnvState, out: torch.Tensor,
             state.goal_xyhw.shape[1]]
     extra = []
     if entry == 'render_hi_into_slot':
-        if len({x is None for x in counts}) > 1:
-            raise ValueError('K4 takes all three counters or none')
-        for name, x, n in zip(('phase_clock', 'item_count', 'pixel_count'),
-                              counts, (K4_PHASES, K4_ITEMS, K4_PIXELS)):
-            physics_kernel.check_counter(name, x, state, len(n))
-        extra = [None if x is None else x.data_ptr() for x in counts]
+        extra = [None if counters is None else counters.take(
+            name, B, state.device).data_ptr() for name in K4_COUNTERS]
     stream = torch.cuda.current_stream(state.device).cuda_stream
     rc = getattr(_build.library(), entry)(
         *ptrs, *ints, *camera_args(view, grid * res), rows, cols, *extra,
@@ -343,9 +345,9 @@ def _fresh(wrapper, entry: str, fidelity: str, state: EnvState, scene,
 
 def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                 rings: dict, t: int, scene, spec, res: int, static_shapes,
-                counts=(None,) * 3):
+                counters=None):
     """Step-`t` frames into their ring slots through `entry` (with
-    `counts`, see :func:`_launch_scene`), counted on `wrapper`; on a CPU
+    `counters`, see :func:`_launch_scene`), counted on `wrapper`; on a CPU
     state, the plain render copied in.  Either in one ``magical.render``
     span (:mod:`trace`)."""
     with trace.span('magical.render'):
@@ -362,7 +364,7 @@ def _into_slots(wrapper, entry: str, fidelity: str, state: EnvState,
                                  f'{tuple(ring.shape)}, want ({depth}, B, '
                                  f'{res}, {res}, 3)')
             _launch_scene(entry, prog, state, ring[t % depth], view, res,
-                          counts=counts)
+                          counters=counters)
             wrapper.launches += 1
         return rings
 
@@ -446,19 +448,17 @@ render_views_hi.launches = 0
 def render_hi_into_slots(state: EnvState, rings: dict, t: int,
                          max_blocks: int, max_goals: int, robot_first: bool,
                          spec, res: int = 96, static_shapes=None,
-                         phase_clock=None, item_count=None,
-                         pixel_count=None):
+                         counters: trace.KernelCounters | None = None):
     """Render the step-`t` hi frame of every view of `spec` into slot
-    ``t mod depth`` of its ring, IN PLACE (K4); returns `rings`.
-    `phase_clock`, `item_count` and `pixel_count`, int64 (B, 2) CUDA
-    tensors, all or none, get each env's counts of :data:`K4_PHASES`,
-    :data:`K4_ITEMS` and :data:`K4_PIXELS` added, over its blocks and
-    views.  On a CPU state it renders with the plain hi render, copies the
-    frames in and counts nothing."""
+    ``t mod depth`` of its ring, IN PLACE (K4); returns `rings`.  With
+    `counters`, K4 adds each env's counts of :data:`K4_PHASES`,
+    :data:`K4_ITEMS` and :data:`K4_PIXELS`, over its blocks and views, to
+    its ``k4_cycles``, ``k4_items`` and ``k4_pixels``.  On a CPU state it
+    renders with the plain hi render, copies the frames in and counts
+    nothing."""
     return _into_slots(render_hi_into_slots, 'render_hi_into_slot', 'hi',
                        state, rings, t, (max_blocks, max_goals, robot_first),
-                       spec, res, static_shapes,
-                       (phase_clock, item_count, pixel_count))
+                       spec, res, static_shapes, counters)
 
 
 render_hi_into_slots.launches = 0

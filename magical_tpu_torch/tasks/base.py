@@ -2,14 +2,15 @@
 
 The PyTorch counterpart of ``magical_tpu/tasks/base.py``.  A task is
 *data*: a :class:`TaskDef` with static sizes plus batched functions
-``reset(generator, batch, flags, device) -> EnvState`` and
+``reset_from_draws(draws, flags) -> EnvState`` and
 ``score(state) -> (B,) f32``; :class:`Stack` collects the geometry of the
 entities a reset has placed, per env, as obstacles for the next placement.
 
-The resets of the multi-block families take their random numbers through
-:class:`Draws`, one named draw at a time, so that :class:`GivenDraws` can
-hand them the numbers another sampler drew (the tests feed the JAX
-package's) and the whole reset can be compared value for value.
+Every reset takes its random numbers through :class:`Draws`, one named
+draw at a time, and places each entity through :func:`place`, so that
+:class:`GivenDraws` can hand it the numbers another sampler drew (the
+tests feed the JAX package's) and the whole reset can be compared value
+for value.  ``TaskDef.reset_fn`` runs it on a generator's draws.
 """
 
 from __future__ import annotations
@@ -59,15 +60,18 @@ class TaskDef:
     ep_len: int
     variants: Tuple[str, ...]
     variant_flags: Dict[str, Flags]
-    reset_fn: Callable  # (generator, batch, flags, device) -> EnvState
+    reset_from_draws: Callable  # (draws, flags) -> EnvState
     score_fn: Callable  # (state) -> (B,) f32
     # Per-block-slot DEFAULT shape codes + which slots can ever be active
     # under the default count (see static_block_shapes).
     default_shapes: Optional[Tuple[int, ...]] = None
     default_active: Optional[Tuple[bool, ...]] = None
-    # (draws, flags) -> EnvState: the reset on given Draws, where the
-    # family takes its random numbers through them
-    reset_from_draws: Optional[Callable] = None
+
+    def reset_fn(self, generator: Optional[torch.Generator], batch: int,
+                 flags: Flags, device):
+        """Reset `batch` envs on the draws of `generator` (a CPU or CUDA
+        generator, or a :class:`randomize.RowSlice` of one)."""
+        return self.reset_from_draws(Draws(generator, batch, device), flags)
 
     def flags_for(self, variant: str) -> Flags:
         return self.variant_flags[variant]
@@ -119,8 +123,9 @@ FULL_VARIANT_FLAGS = {
 
 class Draws:
     """The random numbers of one batched reset, drawn from a CPU or CUDA
-    `generator` (or a :class:`randomize.RowSlice` of one) in call order.  Every draw is per env, (B, *shape), and
-    named; the names are what :class:`GivenDraws` looks up."""
+    `generator` (or a :class:`randomize.RowSlice` of one) in call order.
+    Every draw is per env, (B, *shape), and named; the names are what
+    :class:`GivenDraws` looks up."""
 
     def __init__(self, generator: Optional[torch.Generator], batch: int,
                  device):
@@ -212,23 +217,6 @@ def place(d: Draws, name: str, geom, pos, angle, stack: 'Stack', mask=None,
         return R.place_from_proposals(
             u_pos, u_ang, geom, pos, angle, stack.placed(),
             stack.mask if mask is None else mask, **kw)
-
-
-def sample_phys(generator: torch.Generator, batch: int, flags: Flags,
-                device):
-    """PhysicsVariables.defaults() / .sample(), per env: (B, 5)."""
-    lo = f32(C.PHYS_VAR_LO, device)
-    hi = f32(C.PHYS_VAR_HI, device)
-    if not flags.dynamics:
-        return f32(C.PHYS_VAR_DEFAULTS, device).repeat(batch, 1)
-    u = R.draw(R.rand, device, generator, (batch, C.N_PHYS_VARS))
-    return lo + u * (hi - lo)
-
-
-def choice(generator: torch.Generator, values, batch: int, device):
-    """rng.choice over a static tuple of integer codes, per env: (B,)."""
-    idx = R.draw(R.randint, device, generator, 0, len(values), (batch,))
-    return torch.as_tensor(np.asarray(values, np.int32), device=device)[idx]
 
 
 # ---------------------------------------------------------------------------

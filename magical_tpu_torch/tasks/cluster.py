@@ -78,12 +78,6 @@ def _shuffled_with_all(d: B.Draws, name: str, values, n):
     return vals.gather(1, torch.argsort(u, dim=-1, stable=True))
 
 
-def _reset(generator: torch.Generator, batch: int, flags: B.Flags, device,
-           defaults):
-    return _reset_from_draws(B.Draws(generator, batch, device), flags,
-                             defaults)
-
-
 def _reset_from_draws(d: B.Draws, flags: B.Flags, defaults):
     batch, dev = d.batch, d.device
     state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, dev)
@@ -169,7 +163,6 @@ def _score(state, by_colour: bool):
 COLOUR_TASK = B.TaskDef(
     name='ClusterColour', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=functools.partial(_reset, defaults=COLOUR_DEFAULTS),
     reset_from_draws=functools.partial(_reset_from_draws,
                                        defaults=COLOUR_DEFAULTS),
     score_fn=functools.partial(_score, by_colour=True),
@@ -179,7 +172,6 @@ COLOUR_TASK = B.TaskDef(
 SHAPE_TASK = B.TaskDef(
     name='ClusterShape', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=functools.partial(_reset, defaults=SHAPE_DEFAULTS),
     reset_from_draws=functools.partial(_reset_from_draws,
                                        defaults=SHAPE_DEFAULTS),
     score_fn=functools.partial(_score, by_colour=False),

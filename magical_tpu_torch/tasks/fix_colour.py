@@ -39,10 +39,6 @@ VARIANTS = B.FULL_VARIANTS
 VARIANT_FLAGS = B.FULL_VARIANT_FLAGS
 
 
-def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
-    return reset_from_draws(B.Draws(generator, batch, device), flags)
-
-
 def reset_from_draws(d: B.Draws, flags: B.Flags):
     batch, dev = d.batch, d.device
     state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, dev)
@@ -160,6 +156,6 @@ def score(state):
 TASK = B.TaskDef(
     name='FixColour', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=reset, score_fn=score, reset_from_draws=reset_from_draws,
+    reset_from_draws=reset_from_draws, score_fn=score,
     default_shapes=tuple(int(s) for s in DEFAULT_BLOCK_SHAPES),
     default_active=(True,) * MAX_BLOCKS)

@@ -63,10 +63,6 @@ def _slot_masks(t_count, d_counts):
     return torch.where(is_target, tgt_active, dis_active), is_target
 
 
-def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
-    return reset_from_draws(B.Draws(generator, batch, device), flags)
-
-
 def reset_from_draws(d: B.Draws, flags: B.Flags):
     batch, dev = d.batch, d.device
     state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, dev)
@@ -163,6 +159,6 @@ def score(state):
 TASK = B.TaskDef(
     name='MatchRegions', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=reset, score_fn=score, reset_from_draws=reset_from_draws,
+    reset_from_draws=reset_from_draws, score_fn=score,
     default_shapes=tuple(int(s) for s in DEFAULT_SHAPES),
     default_active=(True, True, False, False, True, False, True, True))

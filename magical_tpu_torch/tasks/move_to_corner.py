@@ -37,40 +37,36 @@ VARIANT_FLAGS = {
 }
 
 
-def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
-    """Reset `batch` envs.  Draws from `generator` only where the variant
-    randomises something."""
-    state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, device)
-    state = state.replace(phys=B.sample_phys(generator, batch, flags,
-                                             device))
+def reset_from_draws(d: B.Draws, flags: B.Flags):
+    """Reset `d.batch` envs.  Draws only where the variant randomises
+    something."""
+    batch, dev = d.batch, d.device
+    state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, dev)
+    state = state.replace(phys=B.phys_from_draws(d, flags))
 
     colour = torch.full((batch,), int(C.ShapeColour.RED), dtype=torch.int32,
-                        device=device)
+                        device=dev)
     shape = torch.full((batch,), int(C.ShapeType.SQUARE), dtype=torch.int32,
-                       device=device)
+                       device=dev)
     if flags.colour:
-        colour = B.choice(generator, C.RAND_SHAPE_COLOURS, batch, device)
+        colour = d.choice('colour', C.RAND_SHAPE_COLOURS)
     if flags.shape:
-        shape = B.choice(generator, C.RAND_SHAPE_TYPES, batch, device)
+        shape = d.choice('shape', C.RAND_SHAPE_TYPES)
 
-    def per_env(x):
-        t = torch.tensor(x, dtype=torch.float32, device=device)
-        return t.expand((batch,) + tuple(t.shape))
-
-    robot_pos, robot_ang = per_env(ROBOT_POSE[0]), per_env(ROBOT_POSE[1])
-    block_pos, block_ang = per_env(BLOCK_POSE[0]), per_env(BLOCK_POSE[1])
+    robot_pos, robot_ang = (B.per_env(v, batch, dev) for v in ROBOT_POSE)
+    block_pos, block_ang = (B.per_env(v, batch, dev) for v in BLOCK_POSE)
     if flags.any_layout:
         pos_lim, rot_lim = B.jitter_limits(flags)
-        stack = B.Stack(2, batch, device)
-        rg = B.robot_geom(batch, device)
+        stack = B.Stack(2, batch, dev)
+        rg = B.robot_geom(batch, dev)
         # order matches move_to_corner.py:57-64: robot first, then shape
-        robot_pos, robot_ang, ok = R.place_entity(
-            generator, rg, robot_pos, robot_ang, stack.placed(), stack.mask,
+        robot_pos, robot_ang, ok = B.place(
+            d, 'robot', rg, robot_pos, robot_ang, stack,
             pos_linf_limit=pos_lim, rot_limit=rot_lim)
         stack.put(0, rg, robot_pos, robot_ang, ok=ok)
         bg = R.block_placement_geom(shape)
-        block_pos, block_ang, ok = R.place_entity(
-            generator, bg, block_pos, block_ang, stack.placed(), stack.mask,
+        block_pos, block_ang, ok = B.place(
+            d, 'block', bg, block_pos, block_ang, stack,
             pos_linf_limit=pos_lim, rot_limit=rot_lim)
         stack.put(1, bg, block_pos, block_ang, ok=ok)
         state = state.replace(place_fail=stack.fails)
@@ -78,7 +74,7 @@ def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
     state = B.set_blocks(state, shape[:, None], colour[:, None],
                          block_pos[:, None], block_ang[:, None],
                          torch.ones((batch, 1), dtype=torch.bool,
-                                    device=device))
+                                    device=dev))
     return B.finalize_robot(state, robot_pos, robot_ang)
 
 
@@ -107,5 +103,5 @@ def debug_shaped_reward(state):
 TASK = B.TaskDef(
     name='MoveToCorner', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=reset, score_fn=score,
+    reset_from_draws=reset_from_draws, score_fn=score,
     default_shapes=(int(C.ShapeType.SQUARE),), default_active=(True,))

@@ -31,60 +31,54 @@ VARIANT_FLAGS = {
 }
 
 
-def reset(generator: torch.Generator, batch: int, flags: B.Flags, device):
-    """Reset `batch` envs.  Draws from `generator` only where the variant
-    randomises something."""
-    state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, device)
-    state = state.replace(phys=B.sample_phys(generator, batch, flags,
-                                             device))
-
-    def per_env(x):
-        t = torch.tensor(x, dtype=torch.float32, device=device)
-        return t.expand((batch,) + tuple(t.shape))
+def reset_from_draws(d: B.Draws, flags: B.Flags):
+    """Reset `d.batch` envs.  Draws only where the variant randomises
+    something."""
+    batch, dev = d.batch, d.device
+    state = make_initial_state(batch, MAX_BLOCKS, MAX_GOALS, dev)
+    state = state.replace(phys=B.phys_from_draws(d, flags))
 
     x, y, h, w = DEFAULT_GOAL_XYHW
-    h, w = per_env(h), per_env(w)
+    h, w = B.per_env(h, batch, dev), B.per_env(w, batch, dev)
     if flags.any_layout:
         # move_to_region.py:32-45 — hw randomised before pose
         bound = C.JITTER_TARGET_BOUND if flags.layout_minor else None
-        h, w = R.randomise_hw(generator, batch, C.RAND_GOAL_MIN_SIZE,
-                              C.RAND_GOAL_MAX_SIZE, device,
-                              current_hw=(h, w), linf_bound=bound)
+        h, w = R.hw_from_uniform(d.uniform('goal_hw', (2,)),
+                                 C.RAND_GOAL_MIN_SIZE, C.RAND_GOAL_MAX_SIZE,
+                                 current_hw=(h, w), linf_bound=bound)
     # goal body position = centre derived from the (possibly resampled)
     # h/w with the default top-left (entities.py:797)
     goal_c = torch.stack([x + w / 2.0, y - h / 2.0], -1)
 
     colour = torch.full((batch,), int(DEFAULT_GOAL_COLOUR), dtype=torch.int32,
-                        device=device)
+                        device=dev)
     if flags.colour:
-        colour = B.choice(generator, C.RAND_SHAPE_COLOURS, batch, device)
+        colour = d.choice('colour', C.RAND_SHAPE_COLOURS)
 
-    robot_pos = per_env(DEFAULT_ROBOT_POSE[0])
-    robot_ang = per_env(DEFAULT_ROBOT_POSE[1])
+    robot_pos, robot_ang = (B.per_env(v, batch, dev)
+                            for v in DEFAULT_ROBOT_POSE)
 
     if flags.any_layout:
         # move_to_region.py:66-83: entities = (goal, robot); goal rotation
         # never randomised; minor => pos bound for both, rot bound robot only
         pos_lim = C.JITTER_POS_BOUND if flags.layout_minor else None
         rot_lim = C.JITTER_ROT_BOUND if flags.layout_minor else None
-        stack = B.Stack(2, batch, device)
+        stack = B.Stack(2, batch, dev)
         gg = R.goal_placement_geom(h, w)
-        zero = torch.zeros((batch,), dtype=torch.float32, device=device)
-        goal_c, _, ok = R.place_entity(
-            generator, gg, goal_c, zero, stack.placed(), stack.mask,
-            rand_rot=False, pos_linf_limit=pos_lim)
+        zero = torch.zeros((batch,), dtype=torch.float32, device=dev)
+        goal_c, _, ok = B.place(d, 'goal', gg, goal_c, zero, stack,
+                                rand_rot=False, pos_linf_limit=pos_lim)
         stack.put(0, gg, goal_c, zero, ok=ok)
-        rg = B.robot_geom(batch, device)
-        robot_pos, robot_ang, ok = R.place_entity(
-            generator, rg, robot_pos, robot_ang, stack.placed(), stack.mask,
+        rg = B.robot_geom(batch, dev)
+        robot_pos, robot_ang, ok = B.place(
+            d, 'robot', rg, robot_pos, robot_ang, stack,
             pos_linf_limit=pos_lim, rot_limit=rot_lim)
         stack.put(1, rg, robot_pos, robot_ang, ok=ok)
         state = state.replace(place_fail=stack.fails)
 
     cxcyhw = torch.stack([goal_c[:, 0], goal_c[:, 1], h, w], -1)[:, None, :]
     state = B.set_goals(state, cxcyhw, colour[:, None],
-                        torch.ones((batch, 1), dtype=torch.bool,
-                                   device=device))
+                        torch.ones((batch, 1), dtype=torch.bool, device=dev))
     return B.finalize_robot(state, robot_pos, robot_ang)
 
 
@@ -97,5 +91,5 @@ def score(state):
 TASK = B.TaskDef(
     name='MoveToRegion', max_blocks=MAX_BLOCKS, max_goals=MAX_GOALS,
     ep_len=EP_LEN, variants=VARIANTS, variant_flags=VARIANT_FLAGS,
-    reset_fn=reset, score_fn=score,
+    reset_from_draws=reset_from_draws, score_fn=score,
     default_shapes=(int(C.ShapeType.SQUARE),), default_active=(False,))

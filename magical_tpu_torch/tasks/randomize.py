@@ -14,8 +14,8 @@ radius (B, KSUB), nv (B, KSUB) i32, active (B, KSUB) bool)`` with the env
 axis first.  Goal region sensors take part in the overlap tests as in the
 reference's shape_query.
 
-The draw and the placement are split: :func:`place_entity` draws the
-uniforms from a ``torch.Generator`` and :func:`place_from_proposals` turns
+The draw and the placement are split: ``tasks.base.place`` draws the
+uniforms through a reset's ``Draws`` and :func:`place_from_proposals` turns
 given uniforms into poses, so that a test can feed the JAX package's
 uniforms to the port.
 
@@ -335,23 +335,6 @@ def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
     return props_pos[rows, pick], props_ang[rows, pick], any_ok
 
 
-def place_entity(generator: torch.Generator, ent_geom, cur_pos, cur_angle,
-                 placed, placed_mask, rand_pos=True, rand_rot=True,
-                 pos_linf_limit=None, rot_limit=None, n_tries=N_TRIES):
-    """Sample a non-colliding pose per env: draws `n_tries` proposals from
-    `generator` and places with :func:`place_from_proposals`, in one
-    ``magical.reset.place`` span."""
-    B, dev = cur_pos.shape[0], cur_pos.device
-    with trace.span('magical.reset.place'):
-        u_pos = draw(rand, dev, generator, (B, n_tries, 2))
-        u_ang = draw(rand, dev, generator, (B, n_tries))
-        return place_from_proposals(u_pos, u_ang, ent_geom, cur_pos,
-                                    cur_angle, placed, placed_mask,
-                                    rand_pos=rand_pos, rand_rot=rand_rot,
-                                    pos_linf_limit=pos_linf_limit,
-                                    rot_limit=rot_limit)
-
-
 def hw_from_uniform(u, min_side, max_side, current_hw=None, linf_bound=None):
     """geom.py:344-359 — goal height/width from uniforms `u` (B, 2);
     `current_hw` is a pair of (B,) tensors.  Returns (h, w), (B,) each."""
@@ -366,11 +349,3 @@ def hw_from_uniform(u, min_side, max_side, current_hw=None, linf_bound=None):
         maxima = torch.minimum(maxima, cur + linf_bound)
     hw = minima + u * (maxima - minima)
     return hw[:, 0], hw[:, 1]
-
-
-def randomise_hw(generator: torch.Generator, batch: int, min_side, max_side,
-                 device, current_hw=None, linf_bound=None):
-    """Uniform goal height/width randomisation, per env: draws from
-    `generator` and applies :func:`hw_from_uniform`."""
-    return hw_from_uniform(draw(rand, device, generator, (batch, 2)),
-                           min_side, max_side, current_hw, linf_bound)

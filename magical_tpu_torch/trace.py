@@ -17,7 +17,7 @@ check that costs a fraction of a microsecond.  The spans:
     magical.reset.draw    a reset's host draw and its copy to the device
                           (randomize.draw), inside `place` where a
                           placement draws
-    magical.reset.place   a placement (base.place, randomize.place_entity)
+    magical.reset.place   a placement (base.place)
     magical.reset.sync    a device-to-host read of a placement
     magical.reset.render  the reset's fresh frames (K3, K4)
     magical.reset.frames  the reset's frame rings and first observation
@@ -25,13 +25,12 @@ check that costs a fraction of a microsecond.  The spans:
 :func:`count` adds to the registry below, also only while a profiler
 records: ``resets``, ``steps``, ``reset_syncs`` (device-to-host reads in
 resets) and ``reset_draw_bytes`` (bytes a reset drew on the host for its
-device).  ``BatchedEnv.counters()`` returns it with the env's kernel
-counters, which its step hands the kernels while a profiler records:
-``k1_cycles`` (K1's cycles per phase), ``k1_items`` (its narrowphase's
-items and those tested in full), ``k4_cycles`` (K4's cycles building and
-culling, and shading), ``k4_items`` (K4's active prims and those its
-tile cull kept) and ``k4_pixels`` (K4's pixels and those it shaded per
-subpixel).  The kernel wrappers' ``.launches`` count always, apart.
+device).  ``BatchedEnv.counters()`` returns it with the totals of the
+env's :class:`KernelCounters`, which its step hands the kernels while a
+profiler records.  Each kernel's module declares the counters its kernel
+keeps (:func:`declare`), beside the kernel: ``core/physics_kernel.py``
+K1's, ``core/render_kernel.py`` K4's.  The kernel wrappers' ``.launches``
+count always, apart.
 """
 
 from __future__ import annotations
@@ -73,3 +72,43 @@ def clear():
     """Set every counter to 0."""
     for key in KEYS:
         _counts[key] = 0
+
+
+# {name: field names}: every kernel counter, declared at import by the
+# module of its kernel
+_KERNEL_COUNTERS = {}
+
+
+def declare(name: str, fields):
+    """Declare kernel counter `name`: int64 counts of `fields` per env."""
+    _KERNEL_COUNTERS[name] = tuple(fields)
+
+
+class KernelCounters:
+    """The kernel counters of one owner on its device: for each declared
+    counter and batch size it was taken at, an int64 (B, len(fields))
+    tensor that the kernels add to."""
+
+    def __init__(self):
+        self._tensors = {}         # (name, batch) -> tensor
+
+    def take(self, name: str, batch: int, device) -> torch.Tensor:
+        """Counter `name`'s tensor for `batch` envs, made on `device` with
+        zeros when first taken, the same tensor after that."""
+        key = (name, batch)
+        if key not in self._tensors:
+            self._tensors[key] = torch.zeros(
+                (batch, len(_KERNEL_COUNTERS[name])), dtype=torch.int64,
+                device=device)
+        return self._tensors[key]
+
+    def totals(self) -> dict:
+        """{name: {field: count summed over envs and batches}} of every
+        declared counter, zeros where never taken: read from the device,
+        so it syncs."""
+        out = {name: dict.fromkeys(fields, 0)
+               for name, fields in _KERNEL_COUNTERS.items()}
+        for (name, _), x in self._tensors.items():
+            for field, n in zip(_KERNEL_COUNTERS[name], x.sum(0).tolist()):
+                out[name][field] += n
+        return out

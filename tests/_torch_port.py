@@ -232,8 +232,41 @@ def _placement(out, name, key):
 
 
 def _choice(key, values, shape=()):
-    """The index base.choice draws from `key`."""
+    """The index JAX's base.choice draws from `key`."""
     return jax.random.randint(key, shape, 0, len(values))
+
+
+def _draws_move_to_corner(key, f):
+    """magical_tpu/tasks/move_to_corner.py:40's key splits."""
+    k_phys, k_col, k_shape, k_rob, k_blk = jax.random.split(key, 5)
+    out = {}
+    if f.dynamics:
+        out['phys'] = jax.random.uniform(k_phys, (JC.N_PHYS_VARS,))
+    if f.colour:
+        out['colour'] = _choice(k_col, JC.RAND_SHAPE_COLOURS)
+    if f.shape:
+        out['shape'] = _choice(k_shape, JC.RAND_SHAPE_TYPES)
+    if f.layout_minor or f.layout_full:
+        _placement(out, 'robot', k_rob)
+        _placement(out, 'block', k_blk)
+    return out
+
+
+def _draws_move_to_region(key, f):
+    """magical_tpu/tasks/move_to_region.py:34's key splits: the goal's size
+    before its colour, then the goal's and the robot's placements."""
+    k_phys, k_hw, k_col, k_goal, k_rob = jax.random.split(key, 5)
+    out = {}
+    if f.dynamics:
+        out['phys'] = jax.random.uniform(k_phys, (JC.N_PHYS_VARS,))
+    if f.layout_minor or f.layout_full:
+        out['goal_hw'] = jax.random.uniform(k_hw, (2,))
+    if f.colour:
+        out['colour'] = _choice(k_col, JC.RAND_SHAPE_COLOURS)
+    if f.layout_minor or f.layout_full:
+        _placement(out, 'goal', k_goal)
+        _placement(out, 'robot', k_rob)
+    return out
 
 
 def _draws_fix_colour(key, f):
@@ -346,7 +379,9 @@ def _draws_cluster(key, f):
     return out
 
 
-_DRAWS = {'FixColour': _draws_fix_colour, 'MakeLine': _draws_make_line,
+_DRAWS = {'MoveToCorner': _draws_move_to_corner,
+          'MoveToRegion': _draws_move_to_region,
+          'FixColour': _draws_fix_colour, 'MakeLine': _draws_make_line,
           'FindDupe': _draws_find_dupe, 'MatchRegions': _draws_match_regions,
           'ClusterColour': _draws_cluster, 'ClusterShape': _draws_cluster}
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from magical_tpu_torch import constants as C
+from magical_tpu_torch import trace
 from magical_tpu_torch.api.batched_env import BatchedEnv
 from magical_tpu_torch.core import (physics, physics_kernel, preproc, render,
                                     render_kernel)
@@ -383,17 +384,15 @@ def test_control_step_kernel_gives_the_same_bits_twice(cuda, family):
     two runs on the same inputs give the same bits, counting the cycles
     of each phase or not."""
     _, st, act = _family_states(cuda, family, 64, 2)
-    clock = torch.zeros((64, len(physics_kernel.PHASES)), dtype=torch.int64,
-                        device=cuda)
+    counters = trace.KernelCounters()
     one = physics_kernel.control_step(st.clone(), act)
-    two = physics_kernel.control_step(st.clone(), act, phase_clock=clock)
+    two = physics_kernel.control_step(st.clone(), act, counters=counters)
     torch.cuda.synchronize()
     for f, _, _ in physics_kernel._fields(st.max_blocks):
         assert torch.equal(getattr(one, f), getattr(two, f)), f
+    clock = counters.take('k1_cycles', 64, cuda)
+    assert clock.shape == (64, len(physics_kernel.PHASES))
     assert bool((clock > 0).all())
-    with pytest.raises(ValueError, match='phase_clock'):
-        physics_kernel.control_step(st.clone(), act,
-                                    phase_clock=clock.int())
 
 
 def test_control_step_kernel_counts_the_items_it_culls(cuda):
@@ -403,7 +402,6 @@ def test_control_step_kernel_counts_the_items_it_culls(cuda):
     10 substeps; the count changes no bit of the step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from magical_tpu_torch import trace
     env = BatchedEnv('ClusterColour-Demo-LoRes4E-v0', device=cuda)
     act = torch.arange(64, device=cuda, dtype=torch.int32) % C.N_ACTIONS
     carry, _ = env.reset(3, 64)
@@ -417,18 +415,18 @@ def test_control_step_kernel_counts_the_items_it_culls(cuda):
     items = env.counters()['k1_items']
     trace.clear()
     assert 0 < items['tested'] < items['candidates'], items
-    count = torch.zeros((64, len(physics_kernel.ITEMS)), dtype=torch.int64,
-                        device=cuda)
+    counters = trace.KernelCounters()
     st = carry.state
     one = physics_kernel.control_step(st.clone(), act)
-    two = physics_kernel.control_step(st.clone(), act, item_count=count)
+    two = physics_kernel.control_step(st.clone(), act, counters=counters)
     torch.cuda.synchronize()
     for f, _, _ in physics_kernel._fields(st.max_blocks):
         assert torch.equal(getattr(one, f), getattr(two, f)), f
+    count = counters.take('k1_items', 64, cuda)
+    assert count.shape == (64, len(physics_kernel.ITEMS))
+    assert bool((count[:, 0] > 0).all())
     assert bool((count[:, 0] % C.PHYS_STEPS == 0).all())
     assert bool((count[:, 1] <= count[:, 0]).all())
-    with pytest.raises(ValueError, match='item_count'):
-        physics_kernel.control_step(st.clone(), act, item_count=count[:, :1])
 
 
 @pytest.fixture(scope='module')
@@ -466,23 +464,19 @@ def test_hi_render_kernel_counts_the_prims_it_culls(cuda, host_lib, task):
     rings = [{v: torch.zeros((spec.depth(v), B, 96, 96, 3),
                              dtype=torch.uint8, device=cuda)
               for v in spec.views} for _ in range(2)]
-    clock, items, pixels = (torch.zeros((B, 2), dtype=torch.int64,
-                                        device=cuda) for _ in range(3))
+    counters = trace.KernelCounters()
     render_kernel.render_hi_into_slots(st, rings[0], 1, *args, spec,
                                        static_shapes=ss)
     render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
-                                       static_shapes=ss, phase_clock=clock,
-                                       item_count=items, pixel_count=pixels)
+                                       static_shapes=ss, counters=counters)
     torch.cuda.synchronize()
     for v in spec.views:
         assert torch.equal(rings[0][v], rings[1][v]), v
+    clock, items = (counters.take(name, B, cuda)
+                    for name in ('k4_cycles', 'k4_items'))
     assert bool((clock > 0).all())
     active, kept = items.unbind(1)
     assert bool((0 < kept).all() and (kept <= active).all())
-    with pytest.raises(ValueError, match='all three counters'):
-        render_kernel.render_hi_into_slots(st, rings[1], 1, *args, spec,
-                                           static_shapes=ss,
-                                           phase_clock=clock)
     host = st.replace(**{f.name: getattr(st, f.name).cpu()
                          for f in dataclasses.fields(st)})
     prog = render_kernel.program_arrays(*args, ss)
@@ -507,7 +501,6 @@ def test_a_traced_hi_step_counts_k4(cuda):
     a few percent of them undecided."""
     from torch.profiler import ProfilerActivity, profile
 
-    from magical_tpu_torch import trace
     env, carry, act = _hi_states(cuda, 'MoveToCorner', n_steps=1)
     zeros = {'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
              'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0),
@@ -569,13 +562,10 @@ def test_hi_frames_over_whole_episodes_are_the_host_builds(cuda, host_lib,
         if (i + 1) % 8 and i + 1 < steps:
             continue
         st, t = carry.state, carry.t
-        counts = [torch.zeros((B, 2), dtype=torch.int64, device=cuda)
-                  for _ in range(3)]
+        counters = trace.KernelCounters()
         rings = {v: torch.zeros_like(carry.frames[v]) for v in spec.views}
         render_kernel.render_hi_into_slots(
-            st, rings, t, *args, spec, static_shapes=ss,
-            phase_clock=counts[0], item_count=counts[1],
-            pixel_count=counts[2])
+            st, rings, t, *args, spec, static_shapes=ss, counters=counters)
         torch.cuda.synchronize()
         host = st.replace(**{f.name: getattr(st, f.name).cpu()
                              for f in dataclasses.fields(st)})
@@ -595,7 +585,8 @@ def test_hi_frames_over_whole_episodes_are_the_host_builds(cuda, host_lib,
             _hi_close(got, render.render_views(
                 st, *args, views=(v,), fidelity='hi',
                 static_shapes=ss)[v])
-        assert torch.equal(counts[2].cpu(), want), i
+        assert torch.equal(counters.take('k4_pixels', B, cuda).cpu(),
+                           want), i
         checked += 1
     assert checked == steps // 8 + (steps % 8 > 0)
 
@@ -609,7 +600,6 @@ def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):
     every phase."""
     from torch.profiler import ProfilerActivity, profile
 
-    from magical_tpu_torch import trace
     from portbench.harness import spec
     from portbench.harness import trace as layers
     env = BatchedEnv('ClusterColour-TestAll-LoRes4E-v0', device=cuda)
