@@ -35,9 +35,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                plain version at the main path's shapes (one control step;
                allo and ego frames).
   5. hi      — MoveToCorner-TestAll-LoRes4E-v0 at hi fidelity, 1024 envs:
-               reset and a full 80-step episode through the control step
-               and the hi render, counted, timed and traced as `main` is
-               (a host-to-device copy fails the run).
+               reset (its two placements through the placement kernel)
+               and a full 80-step episode through the control step and
+               the hi render, counted, timed and traced as `main` is (a
+               host-to-device copy fails the run).
   6. gym     — MoveToRegion-TestAll-v0 through the registry's batch-1 Gym
                adapter at hi fidelity on the card: raw 384² {allo, ego}
                observations, a full 40-step episode (host clock), render()
@@ -69,7 +70,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                also over output tiles of 8², 16², 32² and 96²; and the
                rest of the lo step, the observation assembly and the
                score, alone on the main path's and ClusterColour-TestAll's
-               last states.
+               last states; and the reset's placement kernel on the last
+               placement of a ClusterColour-TestAll reset at 4096 envs
+               (time_placement): the reset's 11 launches, its bits and
+               the picks the plain version's.
   9. episode — K1 over the whole episodes of the three legs of
                tests/fixtures/torch_episode_reference.npz (JAX's Demo
                resets, 64 distinct action sequences a leg: MoveToCorner
@@ -822,6 +826,7 @@ def phase_hi(smi):
     import torch
     from magical_tpu_torch.api.batched_env import BatchedEnv
     from magical_tpu_torch.core import physics_kernel, render, render_kernel
+    from magical_tpu_torch.tasks import place_kernel
     env = BatchedEnv(HI_ENV_NAME, fidelity='hi', device=DEVICE)
     B = HI_BATCH
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -832,7 +837,7 @@ def phase_hi(smi):
     end = torch.cuda.Event(enable_timing=True)
     counters = (physics_kernel.control_step, render_kernel.render_into_slots,
                 render_kernel.render_views_lo, render_kernel.render_views_hi,
-                render_kernel.render_hi_into_slots)
+                render_kernel.render_hi_into_slots, place_kernel.first_fit)
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
@@ -851,7 +856,8 @@ def phase_hi(smi):
                 'K2': render_kernel.render_into_slots.launches,
                 'K3': render_kernel.render_views_lo.launches,
                 'K4 frame': render_kernel.render_views_hi.launches,
-                'K4 slot': render_kernel.render_hi_into_slots.launches}
+                'K4 slot': render_kernel.render_hi_into_slots.launches,
+                'place': place_kernel.first_fit.launches}
     ms = start.elapsed_time(end)
     steps = env.max_episode_steps - warm
     rate = B * steps / (ms / 1e3)
@@ -876,7 +882,7 @@ def phase_hi(smi):
         raise AssertionError('hi: placement failures not reported per env')
     if not (launches['K1'] == 80 and launches['K4 slot'] == 80
             and launches['K4 frame'] == 1 and launches['K2'] == 0
-            and launches['K3'] == 0):
+            and launches['K3'] == 0 and launches['place'] == 2):
         raise AssertionError(f'hi kernel launches {launches}')
     n = 64
     plain = render.render_views(first_envs(carry.state, n),
@@ -1252,6 +1258,124 @@ def phase_times(cases):
             print(f'[times] {label} by tiling (kernel alone): ' + ', '.join(
                 f'{r}x{c} {v:.4f} ms' for (r, c), v in t['tiles_ms'].items()))
     return times
+
+
+def place_work(args, pick, ok):
+    """(operations, bytes) of the least work of a placement with these
+    arguments (props_pos, props_ang, ent_geom, placed, placed_mask): each
+    env's proposals up to its first fit (all T where none fits).  The
+    proposal that fits is tested whole: per active sub-shape of the entity
+    its transform (8 a vertex), walls (24 a vertex) and edges (12 a vertex
+    of a polygon), and per active placed sub-shape in the mask its pair
+    (circle-circle 8; circle-poly 29 an edge of the polygon, +3; SAT 4
+    nv_b + 2 an edge of a, both ways, +2).  A proposal that does not fit
+    is charged its transform alone, since its test may stop at its first
+    wall or overlap, so the operations are a floor.  The placed sub-shapes'
+    edges once an env.  Bytes read once: the tested proposals' poses,
+    cosines and sines; the entity's active flags, and the vertices, radius
+    and vertex count of its active sub-shapes; the mask, the active flags
+    of the rows it keeps, and the vertices, radius and vertex count of
+    their active sub-shapes; the pick and ok written."""
+    import torch
+    pos, ang, (ev, er, env_nv, eact), (pv, pr, pnv, pact), mask = args
+    B, T = ang.shape
+    E = mask.shape[1]
+    K = eact.shape[1]
+    f64 = torch.float64
+    n_tested = torch.where(ok, pick + 1, T).to(f64)                 # (B,)
+    n_fit = ok.to(f64)
+    a_nv = torch.where(eact, env_nv, 0).to(f64)                     # (B, K)
+    a_poly = (eact & (env_nv > 1)).to(f64)
+    a_circ = (eact & (env_nv == 1)).to(f64)
+    transform = 8 * a_nv.sum(1)
+    own = (8 + 24) * a_nv.sum(1) + 12 * (a_poly * a_nv).sum(1)
+    on = (pact & mask[..., None])                                   # (B,E,K)
+    b_nv = torch.where(on, pnv, 0).to(f64).reshape(B, -1)
+    b_circ = (on & (pnv == 1)).to(f64).reshape(B, -1)
+    b_poly = (on & (pnv > 1)).to(f64).reshape(B, -1)
+
+    def sat(na, sa, nb, sb):        # over polygon pairs: counts, nv sums
+        return 8 * sa * sb + 2 * sa * nb + 2 * na * sb + 2 * na * nb
+    pairs = (a_circ.sum(1) * (8 * b_circ.sum(1) + (29 * b_nv * b_poly
+                                                   + 3 * b_poly).sum(1))
+             + (a_poly * (29 * a_nv + 3)).sum(1) * b_circ.sum(1)
+             + sat(a_poly.sum(1), (a_poly * a_nv).sum(1), b_poly.sum(1),
+                   (b_nv * b_poly).sum(1)))
+    staged = 12 * (b_nv * b_poly).sum(1)
+    ops = float(((n_tested - n_fit) * transform + n_fit * (own + pairs)
+                 + staged).sum())
+    shape_bytes = 8 * (a_nv.sum() + b_nv.sum()) + 8 * (
+        eact.sum() + on.sum())                # vertices; radius and nv
+    nbytes = float(n_tested.sum()) * 4 * 4 + float(shape_bytes) \
+        + B * K + B * E + float(mask.sum()) * K + B * 9
+    return ops, nbytes
+
+
+def time_placement(B=4096, seed=SEED + 20):
+    """The placement kernel on the last placement (block 9, against the
+    robot and 9 blocks) of a ClusterColour-TestAll reset of `B` envs: the
+    reset's launches (one a placement) and its bits those of the same
+    reset through the plain version on the card, which records each
+    placement's arguments; the kernel's picks and ok the plain version's
+    on the last; its time alone (the wrapper's launch on those inputs),
+    the plain version's on the card (its five reads included), the least
+    work's bound (place_work), and its share of proposals tested.  Printed
+    and returned as a dict."""
+    import dataclasses
+    import torch
+    from magical_tpu_torch import trace
+    from magical_tpu_torch.tasks import ALL_TASKS, place_kernel
+    from magical_tpu_torch.tasks import randomize as R
+    task = ALL_TASKS['ClusterColour']
+    flags = task.flags_for('TestAll')
+    kernel = place_kernel.first_fit
+    n = kernel.launches
+    st = task.reset_fn(torch.Generator().manual_seed(seed), B, flags, DEVICE)
+    torch.cuda.synchronize()
+    launches = kernel.launches - n
+    calls = []
+
+    def recorded(*args, counters=None):
+        calls.append(args)
+        return R.first_fit(R.proposal_fits(*args))
+    place_kernel.first_fit = recorded
+    try:
+        plain_st = task.reset_fn(torch.Generator().manual_seed(seed), B,
+                                 flags, DEVICE)
+    finally:
+        place_kernel.first_fit = kernel
+    if launches != len(calls) or not all(
+            torch.equal(getattr(st, f.name), getattr(plain_st, f.name))
+            for f in dataclasses.fields(st)):
+        raise AssertionError(f'placement kernel: {launches} launches for '
+                             f'{len(calls)} placements, or a reset that '
+                             f'differs from the plain version\'s')
+    args = calls[-1]
+
+    def plain():
+        return R.first_fit(R.proposal_fits(*args))
+    pick, ok = kernel(*args)
+    want = plain()
+    if not (torch.equal(pick, want[0]) and torch.equal(ok, want[1])):
+        raise AssertionError('placement kernel: picks differ from the '
+                             'plain version\'s')
+    counters = trace.KernelCounters()
+    kernel(*args, counters=counters)
+    items = counters.totals()['place_items']
+    ms = cuda_ms(lambda: kernel(*args), 20)
+    plain_ms = cuda_ms(plain, 2)
+    ops, nbytes = place_work(args, pick, ok)
+    bound_ms, bound_by = bound(ops, nbytes)
+    share = items['tested'] / items['drawn']
+    print(f'[times] place (ClusterColour-TestAll, B={B}, last of '
+          f'{len(calls)} placements, {launches} launches, a reset equal to '
+          f'the plain version\'s; {args[4].shape[1]} rows): kernel '
+          f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms '
+          f'({bound_by}; {ops / 1e6:.3f} M operations, {nbytes / 1e6:.3f} '
+          f'MB); {share:.2%} of proposals tested, {int((~ok).sum())} envs '
+          f'with no fit; picks equal')
+    return dict(ms=ms, plain_ms=plain_ms, ops=ops, bytes=nbytes,
+                share=share, launches=launches)
 
 
 def step_rest(env, carry):
@@ -2565,6 +2689,7 @@ def main():
     times = timed('times', phase_times, cases)
     step_rest(env, carry)
     step_rest(lo_env, lo_carry)
+    place = time_placement()
     _, episode = timed('episode', phase_episode)
     timed('determinism', phase_determinism, lo_carry.state)
     timed('parity', phase_parity)
@@ -2614,6 +2739,14 @@ def main():
             'launches': n, 'max_abs_err': err, 'ms': t['ms'],
             'plain_ms': t['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': None})
+    bound_ms, bound_by = bound(place['ops'], place['bytes'])
+    kernels.append({
+        'name': 'place_first_fit', 'route': 'cuda',
+        'source': 'magical_tpu_torch/csrc/place.cu', 'replaces': None,
+        'launches': place['launches'], 'max_abs_err': 0.0,
+        'ms': place['ms'],
+        'plain_ms': place['plain_ms'], 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'library_ms': None})
     print(f'[result] env-steps/s {rate:.1f} (lo main), {hi_rate:.1f} (hi, '
           f'K1 {hi_k1} and K4 {hi_k4} launches); mean over the families '
           f'{multi["mean"][0]:.1f} (n_tasks={multi["mean"][1]}); on {smi}')

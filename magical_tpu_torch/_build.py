@@ -52,6 +52,9 @@ SIGNATURES = {
         'render_hi_frame')},
     # K4's step entry also takes its three counters' pointers (or nulls)
     'render_hi_into_slot': _SCENE[:-1] + [_P] * 4,
+    # the placement (csrc/place.cu): the proposals, the entity, the placed
+    # rows and the mask, the pick, ok and the counter, B, T, E, the stream
+    'place_first_fit': [_P] * 15 + [_I] * 3 + [_P],
 }
 
 _LIB = None

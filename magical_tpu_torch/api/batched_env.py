@@ -105,9 +105,16 @@ class BatchedEnv:
         # MoveToCorner adds the robot before its block (draw order)
         self.robot_first = (name.task == 'MoveToCorner')
         self.static_shapes = self.task.static_block_shapes(self.flags)
-        # the kernels' counters of this env's steps, handed to the kernels
-        # while a profiler records (counters)
+        # the kernels' counters of this env's resets and steps, handed to
+        # the kernels while a profiler records (counters)
         self._counters = trace.KernelCounters()
+
+    def _recorded_counters(self):
+        """The env's kernel counters while a profiler records on the card,
+        else None."""
+        if self.device.type == 'cuda' and trace.recording():
+            return self._counters
+        return None
 
     # -- rendering ---------------------------------------------------------
 
@@ -154,7 +161,8 @@ class BatchedEnv:
             gen = torch.Generator().manual_seed(int(gen))
         if global_batch is not None and (global_batch, start) != (batch, 0):
             gen = randomize.RowSlice(gen, global_batch, start)
-        state = self.task.reset_fn(gen, batch, self.flags, self.device)
+        state = self.task.reset_fn(gen, batch, self.flags, self.device,
+                                   self._recorded_counters())
         seeds = randomize.draw(randomize.randint, self.device, gen, 0,
                                2 ** 31 - 1, (batch, 2))
         state = state.replace(rng=seeds)
@@ -175,7 +183,8 @@ class BatchedEnv:
         info).  On CUDA the physics kernel updates ``carry.state`` in place
         and the frame rings are written in place.  While a profiler
         records on the card, the kernels count into this env's
-        :meth:`counters`: K1 always, K4 at hi."""
+        :meth:`counters`: K1 always, K4 at hi, and a reset's placement
+        kernel."""
         with trace.span('magical.step'):
             trace.count('steps')
             return self._step(carry, action)
@@ -183,8 +192,7 @@ class BatchedEnv:
     def _step(self, carry: EnvCarry, action):
         action = torch.as_tensor(action, device=self.device).to(torch.int32)
         B = action.shape[0]
-        counters = (self._counters if self.device.type == 'cuda'
-                    and trace.recording() else None)
+        counters = self._recorded_counters()
         state = physics_kernel.control_step(carry.state, action.contiguous(),
                                             counters=counters)
         t = carry.t + 1
@@ -245,10 +253,10 @@ class BatchedEnv:
         ``torch.profiler`` recorded (``resets``, ``steps``,
         ``reset_syncs``, ``reset_draw_bytes``, over every env of the
         process), and the totals of every kernel counter over this env's
-        recorded steps on the card, each ``{field: count}`` summed over
-        envs, zeros where no kernel counted (as on the CPU).  The kernel
-        modules declare their counters (``trace.declare``).  Read from the
-        card, so it syncs; call it after a run."""
+        recorded resets and steps on the card, each ``{field: count}``
+        summed over envs, zeros where no kernel counted (as on the CPU).
+        The kernel modules declare their counters (``trace.declare``).
+        Read from the card, so it syncs; call it after a run."""
         return dict(trace.counts(), **self._counters.totals())
 
     # -- pickling (reference envs are EzPickle-able) ------------------------

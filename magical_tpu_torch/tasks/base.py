@@ -27,6 +27,7 @@ from magical_tpu_torch import geometry as G
 from magical_tpu_torch import trace
 from magical_tpu_torch.core.state import (EnvState, N_ROBOT_BODIES, f32,
                                           place_robot)
+from magical_tpu_torch.tasks import place_kernel
 from magical_tpu_torch.tasks import randomize as R
 
 KSUB = G.KSUB
@@ -68,10 +69,13 @@ class TaskDef:
     default_active: Optional[Tuple[bool, ...]] = None
 
     def reset_fn(self, generator: Optional[torch.Generator], batch: int,
-                 flags: Flags, device):
+                 flags: Flags, device,
+                 counters: Optional[trace.KernelCounters] = None):
         """Reset `batch` envs on the draws of `generator` (a CPU or CUDA
-        generator, or a :class:`randomize.RowSlice` of one)."""
-        return self.reset_from_draws(Draws(generator, batch, device), flags)
+        generator, or a :class:`randomize.RowSlice` of one); the placement
+        kernel counts into `counters` where given."""
+        return self.reset_from_draws(
+            Draws(generator, batch, device, counters), flags)
 
     def flags_for(self, variant: str) -> Flags:
         return self.variant_flags[variant]
@@ -125,13 +129,15 @@ class Draws:
     """The random numbers of one batched reset, drawn from a CPU or CUDA
     `generator` (or a :class:`randomize.RowSlice` of one) in call order.
     Every draw is per env, (B, *shape), and named; the names are what
-    :class:`GivenDraws` looks up."""
+    :class:`GivenDraws` looks up.  `counters`, where given, is what the
+    reset's placement kernel counts into (:func:`place`)."""
 
     def __init__(self, generator: Optional[torch.Generator], batch: int,
-                 device):
+                 device, counters: Optional[trace.KernelCounters] = None):
         self.generator = generator
         self.batch = batch
         self.device = torch.device(device)
+        self.counters = counters
 
     def uniform(self, name: str, shape=()):
         """Uniforms in [0, 1), f32."""
@@ -209,14 +215,18 @@ def place(d: Draws, name: str, geom, pos, angle, stack: 'Stack', mask=None,
     """Place one entity per env against the stack's rows (all of them, or
     those `mask` keeps), from the proposals of draw `name`:
     :func:`randomize.place_from_proposals` on ``name/pos`` (B, N_TRIES, 2)
-    and ``name/ang`` (B, N_TRIES), in one ``magical.reset.place`` span.
-    Returns (pos, angle, ok)."""
+    and ``name/ang`` (B, N_TRIES), its proposals tested by
+    :func:`place_kernel.first_fit` (the kernel on the card, counting into
+    the draws' counters; the plain test on the CPU), in one
+    ``magical.reset.place`` span.  Returns (pos, angle, ok)."""
     with trace.span('magical.reset.place'):
         u_pos = d.uniform(f'{name}/pos', (R.N_TRIES, 2))
         u_ang = d.uniform(f'{name}/ang', (R.N_TRIES,))
-        return R.place_from_proposals(
-            u_pos, u_ang, geom, pos, angle, stack.placed(),
-            stack.mask if mask is None else mask, **kw)
+        props_pos, props_ang = R.proposals(u_pos, u_ang, pos, angle, **kw)
+        pick, ok = place_kernel.first_fit(
+            props_pos, props_ang, geom, stack.placed(),
+            stack.mask if mask is None else mask, counters=d.counters)
+        return (*R.take(props_pos, props_ang, pick), ok)
 
 
 # ---------------------------------------------------------------------------

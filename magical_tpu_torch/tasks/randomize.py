@@ -277,23 +277,12 @@ def transform_entity(geom, pos, angle):
             act.expand(lead + (KSUB,)))
 
 
-def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
-                         placed_mask, rand_pos=True, rand_rot=True,
-                         pos_linf_limit=None, rot_limit=None):
-    """Poses from given uniforms (pm_randomise_pose, geom.py:116-264): the
-    first of each env's proposals that stays inside the arena and overlaps
-    no placed entity, else its last proposal.
-
-    Args:
-      u_pos: (B, T, 2) and u_ang: (B, T) uniforms in [0, 1).
-      ent_geom: the entity's local geometry, per env.
-      cur_pos (B, 2), cur_angle (B,): current pose (centre of the jitter
-        box).
-      placed: world-frame geometry of already-placed entities, each field
-        with (B, E) leading dims; placed_mask: (B, E) bool, which of them
-        to collide against.
-
-    Returns (pos (B, 2), angle (B,), ok (B,) bool)."""
+def proposals(u_pos, u_ang, cur_pos, cur_angle, rand_pos=True,
+              rand_rot=True, pos_linf_limit=None, rot_limit=None):
+    """The proposed poses of given uniforms (pm_randomise_pose,
+    geom.py:116-264): `u_pos` (B, T, 2) and `u_ang` (B, T) mapped into the
+    arena, or into the jitter box around the current pose `cur_pos` (B, 2),
+    `cur_angle` (B,).  Returns (pos (B, T, 2), angle (B, T))."""
     arena_l, arena_r, arena_b, arena_t = C.ARENA_BOUNDS_LRBT
     if pos_linf_limit is not None:
         x_lo = torch.clamp(cur_pos[:, 0] - pos_linf_limit, min=arena_l)
@@ -317,7 +306,20 @@ def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
     props_ang = r_lo + u_ang * (r_hi - r_lo)
     if not rand_rot:
         props_ang = cur_angle[:, None].expand(B, T)
+    return props_pos, props_ang
 
+
+def proposal_fits(props_pos, props_ang, ent_geom, placed, placed_mask):
+    """(B, T) bool: which proposals (`props_pos` (B, T, 2), `props_ang`
+    (B, T)) keep the entity inside the arena and off every placed entity
+    the mask keeps.
+
+    Args:
+      ent_geom: the entity's local geometry, per env.
+      placed: world-frame geometry of already-placed entities, each field
+        with (B, E) leading dims; placed_mask: (B, E) bool, which of them
+        to collide against."""
+    B, T = props_ang.shape
     geom = tuple(x[:, None] for x in ent_geom)               # (B, 1, ...)
     ent = transform_entity(geom, props_pos, props_ang)       # (B, T, ...)
     ok = _inside_arena(*ent)
@@ -328,11 +330,47 @@ def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
         b = tuple(x[:, None].expand(lead + x.shape[2:]) for x in placed)
         hits = _entity_overlap(a, b) & placed_mask[:, None, :]
         ok = ok & ~hits.any(-1)
+    return ok
+
+
+def first_fit(ok):
+    """The first True of each row of `ok` (B, T), else T - 1: (pick (B,)
+    int64, any (B,) bool)."""
     any_ok = ok.any(-1)
     first = torch.argmax(ok.to(torch.int32), -1)
-    pick = torch.where(any_ok, first, T - 1)
-    rows = torch.arange(B, device=pick.device)
-    return props_pos[rows, pick], props_ang[rows, pick], any_ok
+    return torch.where(any_ok, first, ok.shape[1] - 1), any_ok
+
+
+def take(props_pos, props_ang, pick):
+    """Each env's proposal `pick` (B,): (pos (B, 2), angle (B,))."""
+    rows = torch.arange(pick.shape[0], device=pick.device)
+    return props_pos[rows, pick], props_ang[rows, pick]
+
+
+def place_from_proposals(u_pos, u_ang, ent_geom, cur_pos, cur_angle, placed,
+                         placed_mask, rand_pos=True, rand_rot=True,
+                         pos_linf_limit=None, rot_limit=None):
+    """Poses from given uniforms (pm_randomise_pose, geom.py:116-264): the
+    first of each env's proposals that stays inside the arena and overlaps
+    no placed entity, else its last proposal.
+
+    Args:
+      u_pos: (B, T, 2) and u_ang: (B, T) uniforms in [0, 1).
+      ent_geom: the entity's local geometry, per env.
+      cur_pos (B, 2), cur_angle (B,): current pose (centre of the jitter
+        box).
+      placed: world-frame geometry of already-placed entities, each field
+        with (B, E) leading dims; placed_mask: (B, E) bool, which of them
+        to collide against.
+
+    Returns (pos (B, 2), angle (B,), ok (B,) bool).  The plain version of
+    the placement kernel's (tasks/place_kernel.py)."""
+    props_pos, props_ang = proposals(u_pos, u_ang, cur_pos, cur_angle,
+                                     rand_pos, rand_rot, pos_linf_limit,
+                                     rot_limit)
+    pick, any_ok = first_fit(proposal_fits(props_pos, props_ang, ent_geom,
+                                           placed, placed_mask))
+    return (*take(props_pos, props_ang, pick), any_ok)
 
 
 def hw_from_uniform(u, min_side, max_side, current_hw=None, linf_bound=None):

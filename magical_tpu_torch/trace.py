@@ -18,7 +18,9 @@ check that costs a fraction of a microsecond.  The spans:
                           (randomize.draw), inside `place` where a
                           placement draws
     magical.reset.place   a placement (base.place)
-    magical.reset.sync    a device-to-host read of a placement
+    magical.reset.sync    a device-to-host read of a placement (the
+                          plain version's, on the CPU; the card's
+                          placement kernel reads nothing back)
     magical.reset.render  the reset's fresh frames (K3, K4)
     magical.reset.frames  the reset's frame rings and first observation
 
@@ -29,7 +31,8 @@ device).  ``BatchedEnv.counters()`` returns it with the totals of the
 env's :class:`KernelCounters`, which its step hands the kernels while a
 profiler records.  Each kernel's module declares the counters its kernel
 keeps (:func:`declare`), beside the kernel: ``core/physics_kernel.py``
-K1's, ``core/render_kernel.py`` K4's.  The kernel wrappers' ``.launches``
+K1's, ``core/render_kernel.py`` K4's, ``tasks/place_kernel.py`` the
+reset's placement's.  The kernel wrappers' ``.launches``
 count always, apart.
 """
 

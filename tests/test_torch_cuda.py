@@ -7,7 +7,8 @@ CPU, the lo renders building the display list of every family on the
 card, renders that build no display list on the host, a lo step that
 copies nothing from the host, the control step giving the same bits
 twice, the port's spans against the benchmark's layer ranges and K1's
-cycles a phase, K4's counters against the host build's; the
+cycles a phase, K4's counters against the host build's, the reset's
+placement kernel against its plain version on the card; the
 data-parallel path on an NCCL group of one rank (the gathered rollout
 scores, a BC step over the mesh) and the CLI on the card.
 
@@ -28,6 +29,7 @@ from magical_tpu_torch.api.batched_env import BatchedEnv
 from magical_tpu_torch.core import (physics, physics_kernel, preproc, render,
                                     render_kernel)
 from magical_tpu_torch.core.state import make_initial_state
+from magical_tpu_torch.tasks import ALL_TASKS, base, place_kernel, randomize
 
 import _kernel_host
 
@@ -635,8 +637,137 @@ def test_the_port_spans_hold_what_the_benchmark_wraps(cuda, tmp_path):
     counters = env.counters()
     trace.clear()
     assert (counters['resets'], counters['steps']) == (1, 3)
-    assert counters['reset_syncs'] == 10 * 5
+    # the placement kernel reads nothing back (the plain version read 5
+    # times at each of the 10 placements against the robot)
+    assert counters['reset_syncs'] == 0
+    assert counters['place_items']['drawn'] == 11 * 256 * 128
     assert all(v > 0 for v in counters['k1_cycles'].values()), counters
+
+
+# ---------------------------------------------------------------------------
+# The reset's placement kernel (tasks/place_kernel.py, csrc/place.cu)
+# against its plain version on the same CUDA tensors: the benchmark's
+# reference resets on the card, and PyTorch's CPU cos and sqrt round apart
+# from its CUDA ones in the last ulp on a few inputs, so a reset on the
+# card is held to the plain version on the card.
+# ---------------------------------------------------------------------------
+
+def _plain_first_fit(props_pos, props_ang, ent_geom, placed, placed_mask,
+                     counters=None):
+    """randomize.place_from_proposals' test, on any device's tensors."""
+    return randomize.first_fit(randomize.proposal_fits(
+        props_pos, props_ang, ent_geom, placed, placed_mask))
+
+
+@pytest.mark.parametrize('family', sorted(ALL_TASKS))
+def test_placement_kernel_resets_as_the_plain_version(cuda, monkeypatch,
+                                                     family):
+    """Every variant of the family that places (TestJitter, TestLayout,
+    TestCountPlus, TestAll), at 4096 envs and two seeds: the reset through
+    the placement kernel equals, field for field and bit for bit, the same
+    reset with the plain version's test on the card."""
+    t = ALL_TASKS[family]
+    placing = [v for v in t.variants if t.flags_for(v).any_layout]
+    assert placing
+    for variant in placing:
+        for seed in (5, 2 ** 31 + 11):
+            def reset():
+                return t.reset_fn(torch.Generator().manual_seed(seed), 4096,
+                                  t.flags_for(variant), cuda)
+            n = place_kernel.first_fit.launches
+            got = reset()
+            assert place_kernel.first_fit.launches > n
+            with monkeypatch.context() as m:
+                m.setattr(place_kernel, 'first_fit', _plain_first_fit)
+                want = reset()
+            for f in dataclasses.fields(want):
+                assert torch.equal(getattr(got, f.name),
+                                   getattr(want, f.name)), \
+                    (variant, seed, f.name)
+
+
+def test_placement_kernel_counts_its_rounds(cuda, monkeypatch):
+    """A ClusterColour-TestAll reset launches the kernel once a placement
+    (11: the robot, then 10 blocks); with counters it adds T = 128
+    proposals drawn a placement and env, and as tested the rounds of 32
+    up to each env's first fit (all 128 where none fits), as the plain
+    version's picks in the same reset say; the reset's bits are those of
+    the plain version's."""
+    t = ALL_TASKS['ClusterColour']
+    flags = t.flags_for('TestAll')
+    B = 4096
+    picks = []
+
+    def recorded(*args, counters=None):
+        picks.append(_plain_first_fit(*args))
+        return picks[-1]
+
+    monkeypatch.setattr(place_kernel, 'first_fit', recorded)
+    plain = t.reset_fn(torch.Generator().manual_seed(3), B, flags, cuda)
+    monkeypatch.undo()
+    counters = trace.KernelCounters()
+    n = place_kernel.first_fit.launches
+    st = t.reset_fn(torch.Generator().manual_seed(3), B, flags, cuda,
+                    counters=counters)
+    assert place_kernel.first_fit.launches == n + 11
+    for f in dataclasses.fields(st):
+        assert torch.equal(getattr(st, f.name), getattr(plain, f.name))
+    assert len(picks) == 11
+    tested = sum(torch.where(ok, torch.clamp(32 * (pick // 32 + 1), max=128),
+                             128) for pick, ok in picks)
+    items = counters.take('place_items', B, cuda)
+    assert torch.equal(items[:, 0], torch.full((B,), 11 * 128, device=cuda))
+    assert torch.equal(items[:, 1], tested)
+    share = float(items[:, 1].sum()) / float(items[:, 0].sum())
+    assert 0.25 <= share < 0.5
+
+
+def test_placement_kernel_holds_the_sweep_on_the_card(cuda):
+    """The host tests' adversarial sweep (_kernel_host.placement_cases:
+    every pair of entity kinds and every kind against each wall, 64
+    proposals a case from a few ulps on one side of contact to a few on
+    the other) on the card: each case's first fit and ok from the kernel
+    equal the plain test's on the same CUDA tensors, where the first fit
+    falls at the contact."""
+    n_inside = 0
+    for case, args, _ in _kernel_host.placement_cases():
+        pos, ang, ent, placed, mask = args
+        on = (pos.to(cuda), ang.to(cuda), tuple(x.to(cuda) for x in ent),
+              tuple(x.to(cuda) for x in placed), mask.to(cuda))
+        pick, ok = place_kernel.first_fit(*on)
+        want = _plain_first_fit(*on)
+        assert torch.equal(pick, want[0]) and torch.equal(ok, want[1]), case
+        n_inside += int(((want[0] > 0) & (want[0] < ang.shape[1] - 1))
+                        .sum())
+    assert n_inside > 0
+
+
+def test_placement_kernel_rejects_what_it_does_not_take(cuda):
+    B, T = 8, randomize.N_TRIES
+    pos = torch.zeros((B, T, 2), device=cuda)
+    ang = torch.zeros((B, T), device=cuda)
+    geom = base.robot_geom(B, cuda)
+    placed = base.Stack(2, B, cuda).placed()
+    mask = torch.zeros((B, 0), dtype=torch.bool, device=cuda)
+    pick, ok = place_kernel.first_fit(pos, ang, geom, placed, mask)
+    assert pick.dtype == torch.int64 and ok.dtype == torch.bool
+    with pytest.raises(TypeError):
+        place_kernel.first_fit(pos.double(), ang, geom, placed, mask)
+    with pytest.raises(ValueError):
+        place_kernel.first_fit(pos, ang.cpu(), geom, placed, mask)
+    with pytest.raises(ValueError):
+        place_kernel.first_fit(pos, ang[:, :5], geom, placed, mask)
+    # more placed rows than a warp's staging fits in a block's 48 KB: the
+    # launch's error
+    E, K, NV = 64, randomize.KSUB, randomize.NV
+    many = (torch.zeros((B, E, K, NV, 2), device=cuda),
+            torch.zeros((B, E, K), device=cuda),
+            torch.ones((B, E, K), dtype=torch.int32, device=cuda),
+            torch.zeros((B, E, K), dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError, match='place_first_fit'):
+        place_kernel.first_fit(pos, ang, geom, many,
+                               torch.zeros((B, E), dtype=torch.bool,
+                                           device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,14 @@ import torch
 
 from magical_tpu_torch import trace
 from magical_tpu_torch.core import physics_kernel, render_kernel
+from magical_tpu_torch.tasks import place_kernel
 
 DECLARED = {'k1_cycles': physics_kernel.PHASES,
             'k1_items': physics_kernel.ITEMS,
             'k4_cycles': render_kernel.K4_PHASES,
             'k4_items': render_kernel.K4_ITEMS,
-            'k4_pixels': render_kernel.K4_PIXELS}
+            'k4_pixels': render_kernel.K4_PIXELS,
+            'place_items': place_kernel.ITEMS}
 
 
 def test_the_kernel_modules_declare_their_counters():

@@ -25,6 +25,7 @@ from magical_tpu_torch.core import collision, physics, physics_kernel
 from magical_tpu_torch.core import render
 from magical_tpu_torch.core import render_kernel
 from magical_tpu_torch.tasks import ALL_TASKS
+from magical_tpu_torch.tasks import randomize as R
 
 import _kernel_host
 from _torch_port import seek_block_actions
@@ -1068,3 +1069,128 @@ def test_control_step_counts_its_items(host_lib, task, variant):
         assert 0 < int(tested.sum()) < 0.1 * int(candidates.sum())
     else:
         assert torch.equal(tested, candidates)
+
+
+# ---------------------------------------------------------------------------
+# The reset's placement (csrc/place.cuh, place.cu): each proposal's test,
+# and each env's first fit, against randomize.place_from_proposals.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def place_lib(tmp_path_factory):
+    lib = _kernel_host.build_place(tmp_path_factory.mktemp('place_host'))
+    if lib is None:
+        pytest.skip('no host C++ compiler to build the kernel sources')
+    return lib
+
+
+# (task, variant, seed): ClusterColour's plain reset takes ~25 s at 64
+# envs on one core, the others a second or a few
+PLACING = [('ClusterColour', 'TestAll', 2 ** 31 + 5)] + [
+    (task, variant, seed) for task, variant in (
+        ('MoveToCorner', 'TestAll'), ('MoveToRegion', 'TestJitter'),
+        ('FindDupe', 'TestLayout')) for seed in (0, 2 ** 31 + 5)]
+
+
+def _placements(monkeypatch, task, variant, seed, B=64):
+    """Every placement of a `variant` reset of `B` envs on the CPU: its
+    inputs (props_pos, props_ang, ent_geom, placed, placed_mask) and the
+    plain version's test of each proposal (B, T)."""
+    calls = []
+    proposal_fits = R.proposal_fits
+
+    def recorded(*args):
+        fits = proposal_fits(*args)
+        calls.append((args, fits))
+        return fits
+
+    monkeypatch.setattr(R, 'proposal_fits', recorded)
+    t = ALL_TASKS[task]
+    t.reset_fn(torch.Generator().manual_seed(seed), B, t.flags_for(variant),
+               'cpu')
+    monkeypatch.undo()
+    return calls
+
+
+def _host_first_fit(lib, args):
+    """The host build's rounds on a placement: (pick, ok, counts (B, 2))."""
+    counts = torch.zeros((args[1].shape[0], 2), dtype=torch.int64)
+    return (*_kernel_host.place_first_fit(lib, *args, counts=counts), counts)
+
+
+def _assert_rounds(got, fits):
+    """The host build's (pick, ok, counts) are randomize.first_fit's choice
+    of `fits` (B, T), T proposals drawn and the rounds of 32 to the first
+    fit tested (all T where none fits)."""
+    pick, ok, counts = got
+    want_pick, want_ok = R.first_fit(fits)
+    assert torch.equal(pick, want_pick) and torch.equal(ok, want_ok)
+    T = fits.shape[1]
+    rounds = torch.where(ok, torch.div(pick, 32, rounding_mode='floor') + 1,
+                         (T + 31) // 32)
+    assert torch.equal(counts[:, 0], torch.full_like(pick, T))
+    assert torch.equal(counts[:, 1], torch.clamp(32 * rounds, max=T))
+
+
+@pytest.mark.parametrize('task,variant,seed', PLACING)
+def test_placement_kernel_picks_what_the_plain_version_picks(
+        place_lib, monkeypatch, task, variant, seed):
+    """Over every placement of a randomised reset of 64 envs, the host
+    build's test of each proposal equals the plain version's
+    (randomize.proposal_fits), and its rounds' pick and ok are
+    place_from_proposals' choice, with T proposals drawn and the rounds of
+    32 up to the first fit tested; where entities meet (not MoveToCorner's
+    and MoveToRegion's two), some proposals do not fit."""
+    calls = _placements(monkeypatch, task, variant, seed)
+    assert len(calls) == {'ClusterColour': 11, 'FindDupe': 9}.get(task, 2)
+    n_miss = 0
+    for args, fits in calls:
+        assert torch.equal(_kernel_host.place_fits(place_lib, *args), fits)
+        _assert_rounds(_host_first_fit(place_lib, args), fits)
+        assert fits.any()
+        n_miss += int((~fits).sum())
+    if task in ('ClusterColour', 'FindDupe'):
+        assert n_miss > 0
+
+
+def test_placement_holds_in_an_adversarial_sweep(place_lib):
+    """Every pair of entity kinds (robot, each block shape, a goal region;
+    the four cases circle-circle, circle-poly, poly-circle and SAT among
+    their sub-shapes) at N_DIRS directions and body angles, and every kind
+    against each wall, at proposals within a few ulps either side of
+    contact: the host build's test of every proposal equals the plain
+    version's, each case has proposals that fit and that do not, and the
+    host build's rounds pick the first that fits, in the second round
+    where the first 32 overlap."""
+    cases = _kernel_host.placement_cases()
+    n = len(_kernel_host.entity_kinds())
+    assert len(cases) == n * (n + 4)
+    n_late = 0
+    for case, args, want in cases:
+        got = _kernel_host.place_fits(place_lib, *args)
+        assert torch.equal(got, want), case
+        assert want.any() and not want.all(), case
+        first = _host_first_fit(place_lib, args)
+        _assert_rounds(first, want)
+        n_late += int((first[0] >= 32).sum())
+    assert n_late > 0
+
+
+@pytest.fixture(scope='module')
+def place_lib_le(tmp_path_factory):
+    lib = _kernel_host.build_place(
+        tmp_path_factory.mktemp('place_host_le'),
+        defines=('MAGICAL_PLACE_LT(a,b)=((a)<=(b))',))
+    if lib is None:
+        pytest.skip('no host C++ compiler to build the kernel sources')
+    return lib
+
+
+def test_placement_with_a_loose_comparison_fails_the_sweep(place_lib_le):
+    """The sweep catches a comparison one tie off: with `<=` in place of
+    the plain version's strict `<` (an overlap where a separation equals
+    the radii's sum, or a distance is 0), some proposal's test differs."""
+    faults = sum(int((_kernel_host.place_fits(place_lib_le, *args)
+                      != want).sum())
+                 for _, args, want in _kernel_host.placement_cases())
+    assert faults > 0

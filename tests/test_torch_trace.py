@@ -15,7 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 from magical_tpu_torch import trace
 from magical_tpu_torch.api.batched_env import BatchedEnv
 from magical_tpu_torch.core import physics_kernel, render_kernel
-from magical_tpu_torch.tasks import ALL_TASKS, base
+from magical_tpu_torch.tasks import ALL_TASKS, base, place_kernel
 
 B = 4
 SEED = 2 ** 31 + 77
@@ -24,7 +24,8 @@ ZEROS = {'resets': 0, 'steps': 0, 'reset_syncs': 0, 'reset_draw_bytes': 0,
          'k1_items': dict.fromkeys(physics_kernel.ITEMS, 0),
          'k4_cycles': dict.fromkeys(render_kernel.K4_PHASES, 0),
          'k4_items': dict.fromkeys(render_kernel.K4_ITEMS, 0),
-         'k4_pixels': dict.fromkeys(render_kernel.K4_PIXELS, 0)}
+         'k4_pixels': dict.fromkeys(render_kernel.K4_PIXELS, 0),
+         'place_items': dict.fromkeys(place_kernel.ITEMS, 0)}
 # each span: the spans one of which must hold every one of its ranges
 # (None: none need)
 PARENTS = {
@@ -124,7 +125,7 @@ def test_a_traced_reset_counts_its_syncs_and_draws(traced):
     # 11 placements of 128 proposals (x, y, angle), float32, per env
     assert d.nbytes >= B * 11 * 128 * 3 * 4
     for k in ('k1_cycles', 'k1_items', 'k4_cycles', 'k4_items',
-              'k4_pixels'):                                   # CPU: none
+              'k4_pixels', 'place_items'):                    # CPU: none
         assert counters[k] == ZEROS[k]
 
 
