@@ -179,7 +179,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     """One run of `cell`: the result line's dict (with the control's
     readings under ``control`` where asked).  `batch` overrides the
     traffic's and `episodes` ends the window after that many whole
-    episodes (the harness's tests, on the CPU)."""
+    episodes (the harness's tests, on the CPU).  A traffic file with
+    ``"loop": "gail"`` is a learner cell's (``harness/learner.py``)."""
+    if cell.traffic.get('loop') == 'gail':
+        from portbench.harness import learner
+        return learner.run_cell(cell, seed, seconds, traced, device=device,
+                                start=start, batch=batch, control=control,
+                                here=here, episodes=episodes)
     start = time.time() if start is None else start
     device = torch.device(device)
     tr = cell.traffic

@@ -274,12 +274,22 @@ def readings(scene: Scene, window: Window, plan, episodes: int,
     return out
 
 
-def verdict(values: dict, limits: dict) -> bool:
-    """Every number at or under its limit (a reading that is not a number
-    fails)."""
-    return all(values[k] <= limits[k] for k in NUMBERS)
+def _limited(limits: dict, names) -> None:
+    missing = [k for k in names if k not in limits]
+    if missing:
+        raise KeyError(f'no limit for {missing}')
 
 
-def lines(values: dict, limits: dict) -> list:
-    """`<number> <reading> limit <limit>`, one line a number."""
-    return [f'{k} {values[k]!r} limit {limits[k]!r}' for k in NUMBERS]
+def verdict(values: dict, limits: dict, names=NUMBERS) -> bool:
+    """Every number of `names` (an env cell's by default) at or under its
+    limit (a reading that is not a number fails); a number with no limit
+    raises."""
+    _limited(limits, names)
+    return all(values[k] <= limits[k] for k in names)
+
+
+def lines(values: dict, limits: dict, names=NUMBERS) -> list:
+    """`<number> <reading> limit <limit>`, one line a number of `names`; a
+    number with no limit raises."""
+    _limited(limits, names)
+    return [f'{k} {values[k]!r} limit {limits[k]!r}' for k in names]

@@ -172,9 +172,15 @@ def attribute(events: list) -> Trace:
     ops = [Op(e['name'], float(e['ts']), float(e.get('dur', 0)), *where[k])
            for k, e in enumerate(device)]
     host = [r[0] for r in ranges if r[2].startswith('portbench.')]
-    if not ops or not host:
+    return timeline(ops, min(host, default=None))
+
+
+def timeline(ops: list, lo) -> Trace:
+    """The trace of `ops` (by start) over the window from `lo` to the end
+    of the last op: the union of their intervals, and each idle gap
+    labelled by the innermost range of the op that ended it."""
+    if not ops or lo is None:
         return Trace(ops=ops, window=(0.0, 0.0), busy_us=0.0, gaps=[])
-    lo = min(host)
     hi = max(op.start + op.dur for op in ops)
     busy, gaps, end = 0.0, [], lo
     for op in ops:

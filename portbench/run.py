@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     limits = {k: v['limit'] for k, v in checks.items()}
     print(bench.dumps(result))
     sys.stdout.flush()
-    for line in check.lines(values, limits):
+    for line in check.lines(values, limits, list(checks)):
         print(line, file=sys.stderr)
     return 0
 

@@ -17,4 +17,5 @@ def test_cell_is_correct_and_its_control_is_not(workload, cuda_card):
     r = bench.run_cell(cell, 2 ** 31 + 4242, math.inf, False,
                        device=cuda_card, control=True, episodes=1)
     assert r['correct'], r['checks']
-    assert not check.verdict(r['control'], cell.traffic['limits'])
+    assert not check.verdict(r['control'], cell.traffic['limits'],
+                             list(r['checks']))

@@ -156,8 +156,10 @@ def test_no_module_imports_jax_or_the_jax_package(path):
 
 
 def test_metric_readers_agree_with_the_benchmark():
+    from portbench.harness import learner
     bench = spec.benchmark()
-    layers = {layer['layer'] for layer in spec.layers()} | {'device'}
+    layers = {layer['layer'] for layer in spec.layers()} | {'device'} | set(
+        learner.LAYERS)
     for m in bench['per_layer']:
         reader = spec.load_metric(m['name'])
         assert (reader.LAYER, reader.UNIT, reader.MOVES) == (
@@ -188,7 +190,8 @@ def test_layers_wrap_the_port_entry_points_and_unwrap(tmp_path):
 def test_every_end_to_end_metric_is_a_quantity_the_window_measures():
     for m in spec.benchmark()['end_to_end']:
         assert m['name'] in (
-            'env_steps_per_s', 'step_ms_p95', 'setup_s')
+            'env_steps_per_s', 'step_ms_p95', 'train_samples_per_s',
+            'setup_s')
     for w in spec.benchmark()['workloads']:
         cell = spec.cell(w['name'])
         moved = {m['moves'] for m in cell.per_layer}

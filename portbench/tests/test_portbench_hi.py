@@ -38,13 +38,12 @@ def test_the_hi_cell_is_found_by_name():
     assert cell.config['variant'] == cell.traffic['variant']
     assert cell.traffic['limits'] == spec.cell('mtc-demo-lo').traffic[
         'limits']
-    bench = spec.benchmark()
-    unlisted = [m['name'] for m in bench['per_layer']
-                if 'workloads' not in m]
-    assert [m['name'] for m in cell.per_layer] == unlisted + [
-        'k4_shade_ms', 'k4_kept_share']
+    assert [m['name'] for m in cell.per_layer] == [
+        'reset_ms', 'step_host_ms', 'k1_ms', 'k1_roofline', 'render_ms',
+        'render_roofline', 'obs_score_ms', 'idle_share', 'k4_shade_ms',
+        'k4_kept_share', 'k4_undecided_share', 'reset_tested_share']
     assert [m['name'] for m in cell.end_to_end] == [
-        m['name'] for m in bench['end_to_end']]
+        'env_steps_per_s', 'step_ms_p95', 'setup_s']
 
 
 def test_the_share_of_active_prims_k4_keeps():

@@ -1,8 +1,9 @@
 """The frozen reference against the port's plain path on the CPU, bit for
 bit: the reset from a seed, one step, the lo and hi frames, the stacked
-observation and the score, on both configurations' Demo and TestAll
-variants.  (The port on ``device='cpu'`` runs the plain PyTorch versions
-the reference was copied from.)"""
+observation and the score, on the configurations' Demo and TestAll
+variants (MoveToRegion's through the learner's configuration).  (The port
+on ``device='cpu'`` runs the plain PyTorch versions the reference was
+copied from.)"""
 
 import dataclasses
 import json
@@ -15,7 +16,8 @@ from portbench.harness import spec
 from portbench.reference.env import Scene
 
 B = 3
-CASES = [(cfg, variant) for cfg in ('move-to-corner', 'cluster-colour')
+CASES = [(cfg, variant) for cfg in ('move-to-corner', 'cluster-colour',
+                                    'gail-move-to-region')
          for variant in ('Demo', 'TestAll')]
 
 
